@@ -59,14 +59,24 @@ def torch_dtype(t: SqlType) -> torch.dtype:
     return _TORCH_DTYPES[np.dtype(t.np_dtype)]
 
 
+def _gather(sources, indices: torch.Tensor):
+    """Every tensor of ``sources`` at ``indices`` along axis 0, clamped,
+    through the gather kernel (``ops/kernels/gather.py``): one launch per
+    element width on a CUDA device."""
+    # imported here: the ops package imports this module
+    from .ops.kernels.gather import gather_rows
+
+    if indices.dtype not in (torch.int32, torch.int64):
+        indices = indices.to(torch.int64)
+    return gather_rows([s.contiguous() for s in sources],
+                       indices.contiguous())
+
+
 def take_clamped(data: torch.Tensor, indices: torch.Tensor) -> torch.Tensor:
     """``data[indices]`` along axis 0 with out-of-range indices clamped to
     the ends (CUDA indexing does not clamp; the engine's padded index
     vectors rely on it)."""
-    n = data.shape[0]
-    if n == 0:
-        return data.new_zeros((indices.shape[0],) + tuple(data.shape[1:]))
-    return data.index_select(0, indices.to(torch.int64).clamp(0, n - 1))
+    return _gather([data], indices)[0]
 
 
 def round_capacity(n: int) -> int:
@@ -118,18 +128,7 @@ class Column:
                valid: Optional[torch.Tensor] = None) -> "Column":
         """Column at ``indices`` (clamped); rows where ``valid`` is False
         become NULL."""
-        data = take_clamped(self.data, indices)
-        validity = self.validity
-        if validity is not None:
-            validity = take_clamped(validity, indices)
-        if valid is not None:
-            validity = valid if validity is None else (validity & valid)
-        extra = {}
-        if self.lengths is not None:
-            extra["lengths"] = take_clamped(self.lengths, indices)
-        if self.map_values is not None:
-            extra["map_values"] = take_clamped(self.map_values, indices)
-        return replace(self, data=data, validity=validity, **extra)
+        return gather_columns({"c": self}, indices, valid)["c"]
 
     def decode(self, n: Optional[int] = None) -> np.ndarray:
         """Materialise to host numpy values (strings decoded, nulls -> object None)."""
@@ -321,13 +320,25 @@ def encode_dictionary(values: np.ndarray):
     return dictionary, codes.astype(np.int32)
 
 
+_PARTS = ("data", "validity", "lengths", "map_values")
+
+
 def gather_columns(cols: Dict[str, Column], indices: torch.Tensor,
                    valid: Optional[torch.Tensor] = None) -> Dict[str, Column]:
-    """Gather many columns at the same (clamped) indices: one gather per
-    column; rows where ``valid`` is False become NULL."""
-    return {name: c.gather(indices, valid) for name, c in cols.items()}
-
-
-def _stacked_take(M: torch.Tensor, indices: torch.Tensor) -> torch.Tensor:
-    """``take(M, indices, axis=0)`` with clamped indices."""
-    return take_clamped(M, indices)
+    """Gather many columns at the same (clamped) indices: data, validity
+    and nested parts of every column go through the gather kernel together,
+    one launch per element width; rows where ``valid`` is False become
+    NULL."""
+    slots = [(name, part) for name, c in cols.items() for part in _PARTS
+             if getattr(c, part) is not None]
+    moved = dict(zip(slots, _gather(
+        [getattr(cols[name], part) for name, part in slots], indices)))
+    out: Dict[str, Column] = {}
+    for name, c in cols.items():
+        parts = {part: moved[(name, part)] for part in _PARTS
+                 if (name, part) in moved}
+        if valid is not None:
+            v = parts.get("validity")
+            parts["validity"] = valid if v is None else (v & valid)
+        out[name] = replace(c, **parts)
+    return out

@@ -23,9 +23,15 @@ product and limb sums run as one hand-written kernel
 (``ops/kernels/filter_sum.py``) instead of a dozen eager passes; the choice
 is made from the plan's shape before anything is launched.
 
-This slice of the port executes Output, SingleRow, Scan, Filter, Project,
-Limit and Aggregate without GROUP BY; the other plan nodes raise
-``NotImplementedError`` naming the ROADMAP item that brings them.
+Grouped aggregation takes the dense kernel
+(``ops/kernels/dense_group_agg.py``) for a small key domain and the sort +
+prefix-sum path otherwise; its row moves and compactions, like Sort's, go
+through the gather and scatter kernels.
+
+The port executes Output, SingleRow, Scan, Filter, Project, Limit,
+Aggregate (grouped or not; spilling is ROADMAP A9) and Sort; the other plan
+nodes raise ``NotImplementedError`` naming the ROADMAP item that brings
+them (``_LATER_NODES``).
 """
 
 from __future__ import annotations
@@ -38,10 +44,11 @@ import torch
 from ..batch import Column, RecordBatch, round_capacity
 from ..expr import ir
 from ..expr.eval import _common_pair, bind_string_ops, eval_expr
-from ..ops import AggSpec, filter_batch, global_aggregate
+from ..ops import AggSpec, filter_batch, global_aggregate, group_aggregate
 from ..ops.filter import filter_mask
 from ..ops.common import key_ranges
 from ..ops.hashagg import _guard_limb_total
+from ..ops.sort import SortKey, limit_batch, sort_batch
 from ..ops.kernels.filter_sum import range_filter_limb_sums
 from ..sql.logical import (
     Aggregate, Filter, Join, Limit, LogicalNode, Output, Project, Scan,
@@ -57,7 +64,7 @@ class ExecError(Exception):
 
 # plan nodes later slices bring, by ROADMAP item
 _LATER_NODES = {
-    "Join": "ROADMAP A6", "Sort": "ROADMAP A6", "Union": "ROADMAP A7",
+    "Join": "ROADMAP A6", "Union": "ROADMAP A7",
     "WindowNode": "ROADMAP A9", "Unnest": "ROADMAP A9",
     "MarkDistinct": "ROADMAP A9", "MergeSorted": "ROADMAP A9",
 }
@@ -193,6 +200,13 @@ class Executor:
             # sorted/dense grouping emits groups in lexicographic primary
             # order (the first key is packed most significant)
             return [{s} for s in primary]
+        if isinstance(node, Sort):
+            out = []
+            for e, asc, _nf in node.keys:
+                if not (isinstance(e, ir.ColumnRef) and asc):
+                    break
+                out.append({e.name})
+            return out
         if isinstance(node, SingleRow):
             return []
         return None  # nodes this slice does not execute
@@ -280,10 +294,6 @@ class Executor:
         return RecordBatch(cols, child.num_rows)
 
     def _x_Aggregate(self, node: Aggregate, path: Path) -> RecordBatch:
-        if node.group:
-            raise NotImplementedError(
-                "grouped aggregation is not in this slice of the port "
-                "(ROADMAP A5)")
         # fuse an immediate child Filter into the aggregation mask
         # (but never through a fragment-input stub: the stubbed batch is the
         # filter's OUTPUT, its predicate already applied remotely)
@@ -291,7 +301,7 @@ class Executor:
         child_node = node.child
         if isinstance(child_node, Filter) and path + (0,) not in self.stubs:
             below = self.execute(child_node.child, path + (0, 0))
-            if self.route_kernels:
+            if self.route_kernels and not node.group:
                 # matched on the host during discovery, replayed compiled
                 rec = self._rec(path)
                 if not self.compiled:
@@ -314,9 +324,57 @@ class Executor:
             )
             for a in node.aggs
         ]
-        return global_aggregate(aggs, child.num_rows, child.capacity(),
-                                checks=self.overflow_checks,
-                                mask=mask, device=self.device)
+        if not node.group:
+            return global_aggregate(aggs, child.num_rows, child.capacity(),
+                                    checks=self.overflow_checks,
+                                    mask=mask, device=self.device)
+        primary = node.primary or node.group
+        keys = [(s, child[s]) for s in primary]
+        carry = [(s, child[s]) for s in node.group if s not in primary]
+        ranges = self._ranges(path, "ranges", [c for _, c in keys],
+                              child.num_rows)
+        rec = self._rec(path)
+        if not self.compiled:
+            # clustered grouping: equal keys already adjacent in the input
+            # (proved from connector sort metadata via the order chains) --
+            # the grouping sort is elided (StreamingAggregation analog).
+            # Sticky-false across eager reruns so compiled replay matches.
+            from . import ordering as O
+
+            base = self.chains.get(path + (0,))
+            if base is None:
+                base = self.chains.get(path + (0, 0))
+            cl = (mask is None and O.covers_prefix(base, primary))
+            rec["clustered"] = rec.get("clustered", True) and cl
+        if self.compiled:
+            max_groups = rec["max_groups"]
+        else:
+            # group count can never exceed the product of key-range spans
+            # (tight for enum keys: Q1's 3x2 flags -> 128 slots, not 6M)
+            span_product = 1
+            for lo, hi in ranges:
+                span_product *= (hi - lo + 2)
+                if span_product > child.num_rows:
+                    break
+            max_groups = round_capacity(min(child.num_rows, span_product))
+        out = group_aggregate(keys, aggs, child.num_rows, ranges, max_groups,
+                              mask=mask, carry=carry,
+                              checks=self.overflow_checks,
+                              clustered=rec.get("clustered", False))
+        if self.compiled:
+            # compiled replays size every [max_groups] buffer by the
+            # DISCOVERED group count, far below the span bound for sparse
+            # keys; guard against growth
+            self._check_capacity(out.num_rows, max_groups)
+        else:
+            rec["max_groups"] = max(round_capacity(int(out.num_rows)),
+                                    rec.get("max_groups", 0))
+        return self._shrink(out)
+
+    def _spilled_aggregate(self, node, path, child, mask):
+        raise NotImplementedError(
+            "spilled aggregation is not in this slice of the port "
+            "(ROADMAP A9)")
 
     def _range_product_sum(self, node: Aggregate, path: Path,
                            below: RecordBatch, m: "RangeProductSum"
@@ -353,19 +411,17 @@ class Executor:
             return self._shrink(child)
         return self._shrink(limit_batch(child, node.n))
 
-
-def limit_batch(batch: RecordBatch, limit: int) -> RecordBatch:
-    """First ``limit`` rows (the reference keeps this in ``ops/sort.py``,
-    which arrives with ROADMAP A6)."""
-    cap = min(limit, batch.capacity())
-    cols = {
-        name: c.with_data(c.data[:cap],
-                          c.validity[:cap] if c.validity is not None else None)
-        for name, c in batch.columns.items()
-    }
-    nr = batch.num_rows
-    nr = min(nr, limit) if isinstance(nr, int) else torch.clamp(nr, max=limit)
-    return RecordBatch(cols, nr)
+    def _x_Sort(self, node: Sort, path: Path) -> RecordBatch:
+        child = self.execute(node.child, path + (0,))
+        keys = [
+            SortKey(eval_expr(self._bind(e, child), child), asc, nf)
+            for e, asc, nf in node.keys
+        ]
+        lim = None if node.limit is None else node.limit + node.offset
+        out = sort_batch(child, keys, limit=lim)
+        if node.offset:
+            out = _skip_rows(out, node.offset)
+        return self._shrink(out)
 
 
 def _skip_rows(batch: RecordBatch, offset: int) -> RecordBatch:

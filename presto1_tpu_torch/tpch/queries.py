@@ -451,3 +451,18 @@ group by cntrycode
 order by cntrycode
 """,
 }
+
+# The revenue view of Q15 (TPC-H clause 2.4.15) as a statement of its own,
+# ordered by its key so the output order is defined: 10,000 groups at SF1,
+# the sort branch of the grouped aggregation.
+Q15_REVENUE_VIEW = """
+select
+    l_suppkey as supplier_no,
+    sum(l_extendedprice * (1 - l_discount)) as total_revenue
+from lineitem
+where
+    l_shipdate >= date '1996-01-01'
+    and l_shipdate < date '1996-01-01' + interval '3' month
+group by l_suppkey
+order by supplier_no
+"""

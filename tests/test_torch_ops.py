@@ -216,9 +216,14 @@ def test_agg_output_types_and_safety_bound():
 
 
 def test_later_slices_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP A5"):
-        t_agg.group_aggregate([], [], 0, [], 128)
+    """What the operators still leave to later slices: join keys wider than
+    one word, and aggregate functions nobody ported."""
+    from presto1_tpu_torch.ops.common import pack_keys
+
     _, tb = both_batches(SPEC, N)
-    with pytest.raises(NotImplementedError, match="ROADMAP A5"):
+    wide = [(-2 ** 40, 2 ** 40)] * 2
+    with pytest.raises(NotImplementedError, match="63 bits"):
+        pack_keys([tb["k"], tb["v"]], wide, N)
+    with pytest.raises(NotImplementedError, match="stddev"):
         t_agg.global_aggregate(
-            [t_agg.AggSpec("median", tb["x"], "m")], N, N)
+            [t_agg.AggSpec("stddev", tb["x"], "m")], N, N)
