@@ -3,14 +3,17 @@
 
     python3 chip_smoke.py
 
-Drives the main paths of ``presto1_tpu_torch`` on the card -- TPC-H Q6, Q1
-and the revenue view of Q15 at scale factor 1 through ``Engine.sql`` and
+Drives the main paths of ``presto1_tpu_torch`` on the card -- TPC-H Q6, Q1,
+the revenue view of Q15 and Q3, and TPC-DS Q27 (ROLLUP: joins and a Union)
+and Q93 (a LEFT join), all at scale factor 1, through ``Engine.sql`` and
 ``Engine.compile(...)`` / ``CompiledQuery.block_run`` -- builds every
 hand-written kernel from the sources in this checkout, holds each against
 its plain PyTorch version on the card (integers exactly, float64 sums to
 1e-9 relative), shows from the launch counters that the main paths went
-through them, and times kernel, plain version, library call and engine.  Every phase prints one JSON line; any failed phase
-raises, and the exit code is then non-zero.  It needs one CUDA device, the
+through them, checks that a compiled run never waits for the host (one run
+of each statement under ``torch.cuda.set_sync_debug_mode("error")``), and
+times kernel, plain version, library call and engine.  Every phase prints
+one JSON line; any failed phase raises, and the exit code is then non-zero.  It needs one CUDA device, the
 CUDA toolkit (``nvcc``) and no network.  ``P1_TPCH_CACHE=<dir>`` keeps the
 generated TPC-H columns on disk between runs.
 
@@ -525,6 +528,99 @@ def phase_kernel_check_scatter(gen) -> dict:
     return {"max_abs_err": worst, "mask": mask}
 
 
+def phase_kernel_check_dyncopy(gen) -> dict:
+    """``concat_rows`` against its plain version on the card, exactly: the
+    probes' own shapes, a two-part UNION ALL at fact-table size, a FULL
+    join's shape with an empty part, nested rows of two widths, counts of
+    0, at capacity, past capacity and below zero, every element width, more
+    pairs than one launch holds, and views off a 16-byte boundary."""
+    from presto1_tpu_torch.batch import round_capacity
+    from presto1_tpu_torch.ops.kernels import dyncopy as DC
+
+    cases, worst = 0, 0.0
+
+    def hold(columns, counts, capacity, what):
+        nonlocal cases, worst
+        counts = torch.tensor(counts, dtype=torch.int64, device="cuda")
+        got = DC.concat_rows(columns, counts, capacity)
+        torch.cuda.synchronize()
+        want = DC.concat_rows_plain(columns, counts, capacity)
+        for k, (a, b) in enumerate(zip(got, want)):
+            if a.dtype != b.dtype or a.shape != b.shape:
+                raise AssertionError(f"concat_rows column {k}: {a.dtype} "
+                                     f"{tuple(a.shape)} vs plain {b.dtype} "
+                                     f"{tuple(b.shape)} ({what})")
+            worst = max(worst, _abs_err(a, b))
+            if not torch.equal(a, b):
+                raise AssertionError(f"concat_rows column {k} disagrees "
+                                     f"with its plain version ({what})")
+        cases += 1
+
+    def part(n, dtypes, width=None):
+        return [_values((n,) if width is None else (n, width), dt, gen)
+                for dt in dtypes]
+
+    i32, i64 = torch.int32, torch.int64
+    # the probes' own shapes: int32 copies of a dynamic size (t3), to a
+    # dynamic offset (t4, t4b/c), 2-D rows (t4a, t5b), many small copies
+    # at dynamic offsets (t6, t6x, t6p)
+    src = part(8192, [i32])[0]
+    for n in (0, 1, 1000, 8192):
+        hold([[src]], [n], 8192, f"t3 one part, {n} of 8192")
+    a, b = part(2048, [i32])[0], part(2048, [i32])[0]
+    for na, nb in ((0, 5), (7, 2048), (1024, 1024), (2048, 2048)):
+        hold([[a, b]], [na, nb], 4096, f"t4 two parts {na}+{nb}")
+    a, b = part(1024, [i32], 128)[0], part(1024, [i32], 128)[0]
+    hold([[a, b]], [300, 700], 1024, "t4a/t5b [1024,128] rows")
+    smalls = [part(64, [i32])[0] for _ in range(32)]
+    counts = torch.randint(0, 65, (32,), generator=gen, device="cuda")
+    hold([smalls], counts.tolist(), 2048, "t6x 32 parts of 64 rows")
+    # the engine's shape at fact-table size: a two-part UNION ALL of 8
+    # int64 columns, store_sales' and catalog_sales' SF1 row counts, with a
+    # validity mask on one side
+    na, nb = 2_880_404, 1_441_548
+    cols_a, cols_b = part(na, [i64] * 8), part(nb, [i64] * 8)
+    mask_b = torch.rand((nb,), generator=gen, device="cuda") > 0.02
+    fact = [[x, y] for x, y in zip(cols_a, cols_b)] + [[None, mask_b]]
+    cap = round_capacity(na + nb)
+    hold(fact, [na, nb], cap, "UNION ALL 2,880,404 + 1,441,548 rows")
+    hold(fact, [na - 17, nb - 3], cap, "UNION ALL, short counts")
+    # a FULL join's shape: the anti part (or the pairs) empty
+    for counts in ((na, 0), (0, nb)):
+        hold(fact, list(counts), cap, f"FULL join, counts {counts}")
+    # nested [n, W] rows of two widths, their lengths and validity
+    a = [_values((1000, 3), i64, gen), _values((1000,), i32, gen),
+         _values((1000,), torch.bool, gen)]
+    b = [_values((500, 7), i64, gen), _values((500,), i32, gen), None]
+    hold([[a[0], b[0]], [a[1], b[1]], [a[2], b[2]]], [1000, 480], 1536,
+         "nested widths 3 and 7")
+    hold([[a[0], b[0]]], [999, 500], 1500, "nested, count at capacity")
+    # counts of 0, at capacity, past it and below zero: clamped
+    a, b, c = (part(n, _MOVE_DTYPES) for n in (3000, 1, 2049))
+    cols = [list(t) for t in zip(a, b, c)]
+    for counts in ((0, 0, 0), (3000, 1, 2049), (5000, 9, 10**12),
+                   (-4, 1, -1), (17, 0, 2049)):
+        for capacity in (1, 2048, 5050, 8192):
+            hold(cols, list(counts), capacity,
+                 f"every width, counts {counts}, capacity {capacity}")
+    # more pairs than one launch holds (80 int32 columns of 2 parts)
+    a, b = part(4099, [i32] * 40), part(777, [i32] * 40)
+    hold([list(t) for t in zip(a, b)], [4000, 777], 5000, "80 pairs")
+    # 16-byte rows, and views that start off a 16-byte boundary
+    a, b = part(7001, [i64], 2)[0], part(3001, [i64], 2)[0]
+    hold([[a, b]], [7001, 3001], 10240, "16-byte rows")
+    a = [t[1:] for t in part(70_001, _MOVE_DTYPES)]
+    b = [t[3:] for t in part(20_003, _MOVE_DTYPES)]
+    hold([list(t) for t in zip(a, b)], [69_000, 20_000], 90_000,
+         "unaligned views")
+    hold([list(t) for t in zip(a, b)], [69_000, 20_000], 0, "capacity 0")
+    say("kernel_check", kernel="dyncopy", cases=cases, max_abs_err=worst,
+        tolerance=0)
+    return {"max_abs_err": worst,
+            "fact_args": (fact, torch.tensor([na, nb], dtype=i64,
+                                             device="cuda"), cap)}
+
+
 def phase_copy_bandwidth() -> float:
     """Device-to-device ``copy_`` of 1 GiB; bytes/s counting the read and
     the write."""
@@ -711,13 +807,24 @@ def phase_q6_engine(catalog) -> dict:
 
 class _Tap:
     """While active, records the arguments of the largest call (by bytes of
-    tensor arguments) of a kernel wrapper, wherever the port bound its name.
-    Used outside the launch-counted steps, to time each kernel afterwards at
-    the shapes the main path gave it."""
+    tensor arguments) of a kernel wrapper, wherever the port bound its name,
+    and the largest call of each kind (dtypes and ranks of the arguments).
+    Used outside the launch-counted steps, to hold each kernel against its
+    plain version and to time it afterwards at the shapes the main path gave
+    it."""
 
     def __init__(self, name: str, modules):
         self.name, self.modules = name, modules
         self.args, self.bytes = None, -1
+        self.calls = {}  # kind of call -> (bytes, args, kwargs)
+
+    @staticmethod
+    def _kind(x):
+        if isinstance(x, torch.Tensor):
+            return (str(x.dtype), x.dim())
+        if isinstance(x, (list, tuple)):
+            return tuple(_Tap._kind(y) for y in x)
+        return type(x).__name__
 
     @staticmethod
     def _nbytes(x) -> int:
@@ -731,9 +838,12 @@ class _Tap:
         self.orig = getattr(self.modules[0], self.name)
 
         def tapped(*args, **kwargs):
-            size = self._nbytes(args)
+            size = self._nbytes(args) + self._nbytes(list(kwargs.values()))
             if size > self.bytes:
                 self.args, self.bytes = args, size
+            kind = self._kind((args, sorted(kwargs.items())))
+            if size > self.calls.get(kind, (-1,))[0]:
+                self.calls[kind] = (size, args, kwargs)
             return self.orig(*args, **kwargs)
 
         for m in self.modules:
@@ -745,15 +855,63 @@ class _Tap:
             setattr(m, self.name, self.orig)
 
 
+def _kernel_taps():
+    """Taps on ``gather_rows`` and ``scatter_distinct`` in every module of
+    the port that binds them."""
+    from presto1_tpu_torch.ops import common as C, hashagg as H, \
+        join as J, segments as SEG
+    from presto1_tpu_torch.ops.kernels import gather as G, scatter as S
+
+    # batch.py looks gather_rows up in G at each call
+    return (_Tap("gather_rows", [G, C, H, SEG, J]),
+            _Tap("scatter_distinct", [S, SEG, J]))
+
+
+def _hold_taps(what: str, *taps) -> dict:
+    """Every call a tap kept (the largest of each kind a path made) through
+    the kernel and through its plain version on the same inputs: equal by
+    ``torch.equal``, or the run fails.  Returns, per kernel, the calls held
+    and the measured largest |difference|."""
+    from presto1_tpu_torch.ops.kernels import gather as G, scatter as S
+
+    plain = {"gather_rows": G.gather_rows_plain,
+             "scatter_distinct": S.scatter_distinct_plain}
+    out = {}
+    for tap in taps:
+        worst, most = 0.0, 0
+        for kind, (size, args, kwargs) in tap.calls.items():
+            got = tap.orig(*args, **kwargs)
+            want = plain[tap.name](*args, **kwargs)
+            if isinstance(got, torch.Tensor):
+                got, want = [got], [want]
+            for a, b in zip(got, want, strict=True):
+                if a.shape != b.shape or a.dtype != b.dtype \
+                        or not torch.equal(a, b):
+                    raise AssertionError(
+                        f"{tap.name} disagrees with its plain version on "
+                        f"{what}'s call {kind}")
+                worst = max(worst, _abs_err(a, b))
+            most = max(most, size)
+        if not tap.calls:
+            raise AssertionError(f"{what} made no call of {tap.name}")
+        out[tap.name] = {"calls_held": len(tap.calls),
+                         "largest_input_bytes": most, "max_abs_err": worst}
+    return out
+
+
 def _engine_steps(engine, sql: str, check, reps: int) -> dict:
     """Drive one statement down the main path -- ``Engine.sql``,
     ``Engine.compile`` (its discovery run), ``cq()``, ``block_run(reps)`` --
     with every kernel's launch counter set to 0 just before and read around
-    each step.  ``check(batch)`` holds a result against the host reference."""
+    each step, then one more compiled run with PyTorch's synchronisation
+    check set to raise.  ``check(batch)`` holds a result against the host
+    reference."""
     from presto1_tpu_torch.ops.kernels import (
-        dense_group_agg as D, filter_sum as F, gather as G, scatter as S)
+        dense_group_agg as D, dyncopy as DC, filter_sum as F, gather as G,
+        scatter as S)
 
-    mods = {"filter_sum": F, "dense_group_agg": D, "gather": G, "scatter": S}
+    mods = {"filter_sum": F, "dense_group_agg": D, "gather": G, "scatter": S,
+            "dyncopy": DC}
     for m in mods.values():
         m.LAUNCHES = 0
 
@@ -769,6 +927,15 @@ def _engine_steps(engine, sql: str, check, reps: int) -> dict:
     marks.append(read())
     rows_out = cq.block_run(reps=reps)
     marks.append(read())
+    # a compiled run enqueues its work without waiting for the card: a
+    # synchronising call anywhere in its fragments raises here (the one
+    # readback is not part of ``_run``)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        cq._run()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
     check(eager, "Engine.sql")
     check(compiled, "CompiledQuery()")
     if rows_out != compiled.num_rows:
@@ -922,9 +1089,6 @@ def phase_q15view_engine(catalog) -> dict:
     branch of the grouped aggregation (sort, gather, prefix sums, compaction
     of the group boundaries through scatter), then the sort of its groups."""
     from presto1_tpu_torch.exec.engine import Engine
-    from presto1_tpu_torch.ops import common as C, hashagg as H, \
-        segments as SEG
-    from presto1_tpu_torch.ops.kernels import gather as G, scatter as S
     from presto1_tpu_torch.tpch.queries import Q15_REVENUE_VIEW
 
     lineitem = catalog.table("lineitem")
@@ -962,10 +1126,11 @@ def phase_q15view_engine(catalog) -> dict:
     if steps["dense_group_agg"]["call"] != 0:
         raise AssertionError("the Q15 view took the dense path")
     _assert_resident(run["cq"], n)
-    # outside the counted steps: the largest gather and scatter of a run
-    with _Tap("gather_rows", [G, C, H, SEG]) as gtap, \
-            _Tap("scatter_distinct", [S, SEG]) as stap:
+    # outside the counted steps: the gathers and scatters of a run
+    gtap, stap = _kernel_taps()
+    with gtap, stap:
         check(engine.sql(Q15_REVENUE_VIEW), "Engine.sql (tapped)")
+    held = _hold_taps("the Q15 view", gtap, stap)
     ms_trials = [_run_ms(run["cq"], reps) for _ in range(2)]
     ms = sum(ms_trials) / 2
     say("q15view_engine", sf=catalog.sf, lineitem_rows=n,
@@ -974,10 +1139,353 @@ def phase_q15view_engine(catalog) -> dict:
                     zip(want_keys[:3], want_sums[:3])],
         launches=run["launches"], launches_per_step=steps,
         ms_per_run=ms, ms_trials=ms_trials, rows_per_s=n / (ms * 1e-3),
-        profile=_profile(run["cq"]),
+        profile=_profile(run["cq"]), held_against_plain=held,
         agrees_with=["numpy int64 exactly", "eager == compiled"])
-    return {"launches": run["launches"], "ms_per_run": ms,
+    return {"launches": run["launches"], "ms_per_run": ms, "held": held,
             "gather_args": gtap.args, "scatter_args": stap.args}
+
+
+def _load_columns(catalog, table: str, names) -> tuple:
+    """Columns of one table on the card; (host data, host validity or None,
+    seconds the load took -- generation on the host included)."""
+    t0 = time.time()
+    t = catalog.table(table)
+    dev = {c: t.column(c) for c in names}
+    torch.cuda.synchronize()
+    load_s = time.time() - t0
+    data = {c: col.data.cpu().numpy() for c, col in dev.items()}
+    valid = {c: None if col.validity is None else col.validity.cpu().numpy()
+             for c, col in dev.items()}
+    dicts = {c: col.dictionary for c, col in dev.items()}
+    return data, valid, dicts, load_s
+
+
+def _day(iso: str) -> int:
+    return int((np.datetime64(iso) - np.datetime64("1970-01-01"))
+               .astype(int))
+
+
+def _code(dictionary, value: str) -> int:
+    hits = np.nonzero(np.asarray(dictionary) == value)[0]
+    if len(hits) != 1:
+        raise AssertionError(f"{value!r} is not in the dictionary")
+    return int(hits[0])
+
+
+def _lookup(keys, values, at, valid=None):
+    """values[k] for k in ``at`` where ``keys`` holds k (keys unique); a
+    boolean of where it does."""
+    order = np.argsort(keys, kind="stable")
+    ks = keys[order]
+    pos = np.clip(np.searchsorted(ks, at), 0, max(len(ks) - 1, 0))
+    hit = (ks[pos] == at) if len(ks) else np.zeros(len(at), bool)
+    if valid is not None:
+        hit = hit & valid
+    return values[order][pos], hit
+
+
+def _engine_phase(name: str, engine, sql: str, check, reps: int = 20,
+                  need=()) -> dict:
+    """One statement down the main path with the launch counters read
+    around each step; eager equals compiled; ms per run, the profile and
+    the launches of every kernel on this path.  ``need``: kernels that
+    must have launched in every compiled run."""
+    run = _engine_steps(engine, sql, check, reps)
+    _same_batches(run["eager"], run["compiled"], name)
+    steps = run["launches_per_step"]
+    for k in need:
+        if steps[k]["call"] < 1:
+            raise AssertionError(f"{name} did not go through {k} in a "
+                                 f"compiled run: {steps[k]}")
+    if not all(t.is_cuda for t in run["cq"].inputs.values()):
+        raise AssertionError(f"{name}: scan inputs are not on the card")
+    # outside the counted steps: every kind of gather and scatter call the
+    # path makes, at its largest, against the plain versions
+    gtap, stap = _kernel_taps()
+    with gtap, stap:
+        check(engine.sql(sql), "Engine.sql (tapped)")
+    held = _hold_taps(name, gtap, stap)
+    ms_trials = [_run_ms(run["cq"], reps) for _ in range(2)]
+    return {"run": run, "ms": sum(ms_trials) / 2, "ms_trials": ms_trials,
+            "profile": _profile(run["cq"]), "held": held}
+
+
+def _numpy_q3(li, orders, cust, seg_code: int) -> list:
+    """TPC-H Q3 over host columns in int64: the top 10 (orderkey, unscaled
+    revenue at scale 4, orderdate, shippriority)."""
+    d = _day("1995-03-15")
+    ok_cust = np.isin(orders["o_custkey"],
+                      cust["c_custkey"][cust["c_mktsegment"] == seg_code])
+    osel = ok_cust & (orders["o_orderdate"] < d)
+    okeys = orders["o_orderkey"][osel]
+    lsel = (li["l_shipdate"] > d) & np.isin(li["l_orderkey"], okeys)
+    lk = li["l_orderkey"][lsel]
+    rev = li["l_extendedprice"][lsel] * (100 - li["l_discount"][lsel])
+    order = np.argsort(lk, kind="stable")
+    lk, rev = lk[order], rev[order]
+    keys, starts = np.unique(lk, return_index=True)
+    sums = np.add.reduceat(rev, starts) if len(keys) else rev[:0]
+    odate, _ = _lookup(orders["o_orderkey"], orders["o_orderdate"], keys)
+    prio, _ = _lookup(orders["o_orderkey"], orders["o_shippriority"], keys)
+    top = np.lexsort((keys, odate, -sums))[:10]
+    return [(int(keys[i]), int(sums[i]), int(odate[i]), int(prio[i]))
+            for i in top]
+
+
+def phase_q3_engine(catalog) -> dict:
+    """TPC-H Q3 at the catalog's scale factor: two N:1 inner joins through
+    ``merge_join`` (sort, scans, compaction through scatter, payload through
+    gather), a clustered grouped aggregate and a TopN."""
+    from presto1_tpu_torch.exec.engine import Engine
+    from presto1_tpu_torch.tpch.queries import QUERIES
+
+    t0 = time.time()
+    li, _, _, _ = _load_columns(catalog, "lineitem",
+                                ("l_orderkey", "l_extendedprice",
+                                 "l_discount", "l_shipdate"))
+    orders, _, _, _ = _load_columns(catalog, "orders",
+                                    ("o_orderkey", "o_custkey", "o_orderdate",
+                                     "o_shippriority"))
+    cust, _, cdicts, _ = _load_columns(catalog, "customer",
+                                       ("c_custkey", "c_mktsegment"))
+    load_s = time.time() - t0
+    want = _numpy_q3(li, orders, cust,
+                     _code(cdicts["c_mktsegment"], "BUILDING"))
+    if len(want) != 10:
+        raise AssertionError("Q3 reference has fewer than 10 rows: the data "
+                             "is wrong")
+    types = ["bigint", "decimal(38,4)", "date", "integer"]
+
+    def check(batch, what):
+        cols = list(batch.columns.values())
+        if [str(c.type) for c in cols] != types or \
+                not all(c.data.is_cuda for c in cols):
+            raise AssertionError(f"{what}: unexpected Q3 output columns")
+        if batch.num_rows != 10:
+            raise AssertionError(f"{what}: {batch.num_rows} rows, not 10")
+        for c in cols:
+            if c.validity is not None and not bool(c.validity[:10].all()):
+                raise AssertionError(f"{what}: NULL in Q3's output")
+        got = list(zip(*[c.data[:10].cpu().tolist() for c in cols]))
+        if got != want:
+            raise AssertionError(f"{what}: Q3 {got} != numpy {want}")
+
+    engine = Engine(catalog, device="cuda")
+    out = _engine_phase("Q3", engine, QUERIES[3], check,
+                        need=("gather", "scatter"))
+    run = out["run"]
+    say("q3_engine", sf=catalog.sf, load_seconds=load_s,
+        lineitem_rows=catalog.table("lineitem").num_rows,
+        orders_rows=catalog.table("orders").num_rows,
+        customer_rows=catalog.table("customer").num_rows,
+        rows=[list(r) for r in want], launches=run["launches"],
+        launches_per_step=run["launches_per_step"], ms_per_run=out["ms"],
+        ms_trials=out["ms_trials"], profile=out["profile"],
+        held_against_plain=out["held"],
+        agrees_with=["numpy int64 exactly (top 10 rows)",
+                     "eager == compiled"])
+    return {"launches": run["launches"], "ms_per_run": out["ms"],
+            "held": out["held"]}
+
+
+def _numpy_q27(catalog) -> tuple:
+    """TPC-DS Q27 over host columns: rows of (i_item_id, s_state, four
+    averages) in the statement's order, every ROLLUP level; averages as
+    the engine computes them (the int64 sum as a double over count x
+    10^scale).  Returns (rows, load seconds)."""
+    t0 = time.time()
+    ss, ssv, _, _ = _load_columns(
+        catalog, "store_sales",
+        ("ss_sold_date_sk", "ss_item_sk", "ss_cdemo_sk", "ss_store_sk",
+         "ss_quantity", "ss_list_price", "ss_sales_price", "ss_coupon_amt"))
+    cd, _, cdd, _ = _load_columns(
+        catalog, "customer_demographics",
+        ("cd_demo_sk", "cd_gender", "cd_marital_status",
+         "cd_education_status"))
+    dd, _, _, _ = _load_columns(catalog, "date_dim", ("d_date_sk", "d_year"))
+    st, _, std, _ = _load_columns(catalog, "store", ("s_store_sk", "s_state"))
+    it, _, itd, _ = _load_columns(catalog, "item",
+                                  ("i_item_sk", "i_item_id", "i_manager_id"))
+    load_s = time.time() - t0
+    cd_ok = ((cd["cd_gender"] == _code(cdd["cd_gender"], "F"))
+             & (cd["cd_marital_status"] == _code(cdd["cd_marital_status"],
+                                                 "W"))
+             & (cd["cd_education_status"]
+                == _code(cdd["cd_education_status"], "Primary")))
+    ok1, hit1 = _lookup(cd["cd_demo_sk"], cd_ok, ss["ss_cdemo_sk"],
+                        ssv["ss_cdemo_sk"])
+    ok2, hit2 = _lookup(dd["d_date_sk"], dd["d_year"] == 1998,
+                        ss["ss_sold_date_sk"], ssv["ss_sold_date_sk"])
+    item_ok = it["i_manager_id"] == 5
+    ok3, hit3 = _lookup(it["i_item_sk"], item_ok, ss["ss_item_sk"],
+                        ssv["ss_item_sk"])
+    item_id, _ = _lookup(it["i_item_sk"], it["i_item_id"], ss["ss_item_sk"])
+    state, hit4 = _lookup(st["s_store_sk"], st["s_state"],
+                          ss["ss_store_sk"], ssv["ss_store_sk"])
+    m = ok1 & hit1 & ok2 & hit2 & ok3 & hit3 & hit4
+    ids = itd["i_item_id"][item_id[m]]
+    states = std["s_state"][state[m]]
+    vals = [ss[c][m].astype(np.int64) for c in
+            ("ss_quantity", "ss_list_price", "ss_coupon_amt",
+             "ss_sales_price")]
+    scales = (1, 100, 100, 100)
+
+    def avgs(sel):
+        c = int(sel.sum())
+        return [float(v[sel].sum()) / (c * s) for v, s in zip(vals, scales)]
+
+    rows = []
+    for i in sorted(set(ids.tolist())):
+        mi = ids == i
+        for s in sorted(set(states[mi].tolist())):
+            rows.append((i, s, *avgs(mi & (states == s))))
+        rows.append((i, None, *avgs(mi)))
+    if m.any():
+        rows.append((None, None, *avgs(np.ones(int(m.sum()), bool))))
+    return rows, int(m.sum()), load_s
+
+
+def phase_q27_engine(catalog) -> dict:
+    """TPC-DS Q27 at the catalog's scale factor: three Aggregates over four
+    N:1 inner joins each (twelve ``merge_join`` calls), their rows put
+    together by the Union through ``dyncopy``, and the final Sort."""
+    from presto1_tpu_torch.exec import executor as X
+    from presto1_tpu_torch.exec.engine import Engine
+    from presto1_tpu_torch.ops.kernels import dyncopy as DC
+    from presto1_tpu_torch.tpcds.queries import QUERIES
+
+    want, joined, load_s = _numpy_q27(catalog)
+    if joined < 10 or len(want) < 3:
+        raise AssertionError(f"Q27 joins {joined} rows into {len(want)}: "
+                             f"the data is wrong")
+    types = ["varchar", "varchar", "double", "double", "double", "double"]
+
+    def check(batch, what):
+        cols = list(batch.columns.values())
+        if [str(c.type) for c in cols] != types or \
+                not all(c.data.is_cuda for c in cols):
+            raise AssertionError(f"{what}: unexpected Q27 output columns")
+        if batch.num_rows != len(want):
+            raise AssertionError(f"{what}: {batch.num_rows} rows, numpy "
+                                 f"{len(want)}")
+        k = batch.num_rows
+        got = [list(c.decode(k)) for c in cols]
+        for r, row in enumerate(want):
+            for j, w in enumerate(row):
+                g = got[j][r]
+                if j >= 2:
+                    ok = g is not None and abs(g - w) <= 1e-9 * abs(w)
+                else:
+                    ok = (g is None and w is None) or (g is not None
+                                                       and str(g) == w)
+                if not ok:
+                    raise AssertionError(f"{what}: Q27 row {r} column {j}: "
+                                         f"{g!r} != numpy {w!r}")
+
+    engine = Engine(catalog, device="cuda")
+    sql = QUERIES[27]
+    out = _engine_phase("Q27", engine, sql, check,
+                        need=("gather", "scatter", "dyncopy"))
+    run = out["run"]
+    with _Tap("concat_rows", [DC, X]) as tap:  # outside the counted steps
+        check(engine.sql(sql), "Engine.sql (tapped)")
+    say("q27_engine", sf=catalog.sf, load_seconds=load_s,
+        store_sales_rows=catalog.table("store_sales").num_rows,
+        rows_joined=joined, rows=len(want), first_rows=want[:3],
+        launches=run["launches"], launches_per_step=run["launches_per_step"],
+        ms_per_run=out["ms"], ms_trials=out["ms_trials"],
+        profile=out["profile"], held_against_plain=out["held"],
+        agrees_with=["numpy (keys exactly, averages to 1e-9 relative)",
+                     "eager == compiled"])
+    return {"launches": run["launches"], "ms_per_run": out["ms"],
+            "held": out["held"], "union_args": tap.args}
+
+
+def _numpy_q93(catalog) -> tuple:
+    """TPC-DS Q93 over host columns in int64: the first 100 rows of
+    (customer or None, unscaled net sales at scale 2)."""
+    t0 = time.time()
+    ss, ssv, _, _ = _load_columns(
+        catalog, "store_sales",
+        ("ss_item_sk", "ss_ticket_number", "ss_customer_sk", "ss_quantity",
+         "ss_sales_price"))
+    sr, srv, _, _ = _load_columns(
+        catalog, "store_returns",
+        ("sr_item_sk", "sr_ticket_number", "sr_return_quantity"))
+    load_s = time.time() - t0
+
+    def valid(v, c, n):
+        return np.ones(n, bool) if v[c] is None else v[c]
+
+    n, nr = len(ss["ss_item_sk"]), len(sr["sr_item_sk"])
+    # (item, ticket) of a return is unique: pack both into one word
+    width = int(max(ss["ss_ticket_number"].max(),
+                    sr["sr_ticket_number"].max())).bit_length()
+    rkey = (sr["sr_item_sk"] << width) | sr["sr_ticket_number"]
+    skey = (ss["ss_item_sk"] << width) | ss["ss_ticket_number"]
+    rvalid = valid(srv, "sr_item_sk", nr) & valid(srv, "sr_ticket_number", nr)
+    ret, hit = _lookup(rkey[rvalid], sr["sr_return_quantity"][rvalid], skey,
+                       valid(ssv, "ss_item_sk", n)
+                       & valid(ssv, "ss_ticket_number", n))
+    qty = ss["ss_quantity"].astype(np.int64)
+    act = np.where(hit, qty - ret, qty) * ss["ss_sales_price"]
+    cust = ss["ss_customer_sk"]
+    cvalid = valid(ssv, "ss_customer_sk", n)
+    null_key = int(cust.max()) + 1  # sorts after every customer
+    key = np.where(cvalid, cust, null_key)
+    keys, inverse = np.unique(key, return_inverse=True)
+    sums = np.zeros(len(keys), np.int64)
+    np.add.at(sums, inverse, act)
+    top = np.lexsort((keys, sums))[:100]
+    return [(None if keys[i] == null_key else int(keys[i]), int(sums[i]))
+            for i in top], int(hit.sum()), load_s
+
+
+def phase_q93_engine(catalog) -> dict:
+    """TPC-DS Q93 at the catalog's scale factor: store_sales LEFT JOIN
+    store_returns on a two-column key through ``_probe_ranges`` and the N:1
+    LEFT lookup, then a grouped sum and a TopN."""
+    from presto1_tpu_torch.exec.engine import Engine
+    from presto1_tpu_torch.tpcds.queries import QUERIES
+
+    want, matched, load_s = _numpy_q93(catalog)
+    if len(want) != 100 or matched == 0:
+        raise AssertionError("Q93 reference is empty or matched no return: "
+                             "the data is wrong")
+
+    def check(batch, what):
+        k, s = batch["ss_customer_sk"], batch["sumsales"]
+        if str(k.type) != "bigint" or str(s.type) != "decimal(38,2)" \
+                or not (k.data.is_cuda and s.data.is_cuda):
+            raise AssertionError(f"{what}: unexpected Q93 output columns")
+        if batch.num_rows != 100:
+            raise AssertionError(f"{what}: {batch.num_rows} rows, not 100")
+        if not bool(s.validity[:100].all()):
+            raise AssertionError(f"{what}: NULL net sales")
+        kv = k.validity[:100].cpu().tolist() if k.validity is not None \
+            else [True] * 100
+        got = [(int(a) if v else None, int(b)) for a, b, v in
+               zip(k.data[:100].cpu().tolist(), s.data[:100].cpu().tolist(),
+                   kv)]
+        if got != want:
+            raise AssertionError(f"{what}: Q93 disagrees with numpy")
+
+    engine = Engine(catalog, device="cuda")
+    out = _engine_phase("Q93", engine, QUERIES[93], check,
+                        need=("gather", "scatter"))
+    run = out["run"]
+    say("q93_engine", sf=catalog.sf, load_seconds=load_s,
+        store_sales_rows=catalog.table("store_sales").num_rows,
+        store_returns_rows=catalog.table("store_returns").num_rows,
+        rows_matched=matched, first_rows=want[:3],
+        null_customer_rank=next((i for i, r in enumerate(want)
+                                 if r[0] is None), None),
+        launches=run["launches"], launches_per_step=run["launches_per_step"],
+        ms_per_run=out["ms"], ms_trials=out["ms_trials"],
+        profile=out["profile"], held_against_plain=out["held"],
+        agrees_with=["numpy int64 exactly (100 rows)", "eager == compiled"])
+    return {"launches": run["launches"], "ms_per_run": out["ms"],
+            "held": out["held"]}
 
 
 def _bounds(nbytes: int, ops: float, copy_rate: float) -> dict:
@@ -1111,12 +1619,59 @@ def scatter_times(idx, x, size, mask, copy_rate: float) -> dict:
     return out
 
 
+def dyncopy_times(columns, counts, capacity: int, copy_rate: float) -> dict:
+    """``concat_rows`` at one shape.  Bytes the function needs: each part's
+    live rows read once (a None entry reads nothing) and ``capacity`` rows
+    of every column written once, plus the counts.  The library call is
+    ``torch.cat`` of the live prefixes, with the counts known on the host
+    (it writes no zero tail)."""
+    from presto1_tpu_torch.ops.kernels import dyncopy as DC
+
+    k = counts.shape[0]
+    host = counts.tolist()
+    rows = [next(c[p] for c in columns if c[p] is not None).shape[0]
+            for p in range(k)]
+    live = [min(max(c, 0), r) for c, r in zip(host, rows)]
+
+    def row_bytes(t):
+        return t.element_size() * (t.numel() // max(t.shape[0], 1))
+
+    read = sum(live[p] * row_bytes(t) for col in columns
+               for p, t in enumerate(col) if t is not None)
+    outs = DC.concat_rows(columns, counts, capacity)
+    write = sum(capacity * row_bytes(o) for o in outs)
+    nbytes = read + write + 8 * k
+    fills = [[torch.ones((live[p],) + tuple(next(
+        x for x in col if x is not None).shape[1:]), dtype=torch.bool,
+        device="cuda") if t is None else t[:live[p]]
+        for p, t in enumerate(col)] for col in columns]
+
+    def library():
+        return [torch.cat(parts, dim=0) for parts in fills]
+
+    out = {"parts": k, "columns": len(columns), "capacity": capacity,
+           "live_rows": sum(live), "read_bytes": read, "write_bytes": write,
+           "ms": device_ms(lambda: DC.concat_rows(columns, counts,
+                                                  capacity)),
+           "plain_ms": device_ms(lambda: DC.concat_rows_plain(
+               columns, counts, capacity), reps=5),
+           "call_ms": time_ms(lambda: DC.concat_rows(columns, counts,
+                                                     capacity)),
+           **_bounds(nbytes, 0, copy_rate),
+           "library_ms": device_ms(library),
+           "library_call": "torch.cat of the live prefixes, counts known "
+                           "on the host, no zero tail"}
+    out["bytes_per_s"] = nbytes / (out["ms"] * 1e-3)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; "
                          "this script runs on a CUDA device only")
     import presto1_tpu_torch  # noqa: F401 -- fail before printing anything
     from presto1_tpu_torch.exec.catalog import TpchCatalog
+    from presto1_tpu_torch.tpcds.catalog import TpcdsCatalog
 
     device = phase_device()
     phase_build()
@@ -1126,14 +1681,32 @@ def main() -> int:
     dense_err = phase_kernel_check_dense(gen)
     gather_err = phase_kernel_check_gather(gen)
     scatter_err = phase_kernel_check_scatter(gen)
+    dyncopy_err = phase_kernel_check_dyncopy(gen)
     copy_rate = phase_copy_bandwidth()
     catalog = TpchCatalog(sf=1.0, device="cuda")
     q6 = phase_q6_engine(catalog)
     q1 = phase_q1_engine(catalog)
     q15 = phase_q15view_engine(catalog)
+    q3 = phase_q3_engine(catalog)
+    ds = TpcdsCatalog(sf=1.0, device="cuda")
+    q27 = phase_q27_engine(ds)
+    q93 = phase_q93_engine(ds)
+    paths = (q1, q15, q3, q27, q93)
     launches = {k: q6["launches"] if k == "filter_sum"
-                else q1["launches"][k] + q15["launches"][k]
+                else sum(p["launches"][k] for p in paths)
                 for k in q1["launches"]}
+    # the main paths' own gather and scatter calls, held against the plain
+    # versions in each phase, count in the kernels' measured error
+    for held_err, name in ((gather_err, "gather_rows"),
+                           (scatter_err, "scatter_distinct")):
+        held_err["max_abs_err"] = max(
+            [held_err["max_abs_err"]]
+            + [p["held"][name]["max_abs_err"] for p in (q15, q3, q27, q93)])
+        held_err["held_at_main_path_calls"] = {
+            q: p["held"][name]["calls_held"] for q, p in
+            (("q15_view", q15), ("q3", q3), ("q27", q27), ("q93", q93))}
+
+    from presto1_tpu_torch.ops.kernels import dyncopy as DC
 
     card = device["nvidia_smi"]
     at_engine = kernel_times(q6["cols"], copy_rate)
@@ -1158,6 +1731,21 @@ def main() -> int:
     mask = scatter_err.pop("mask")
     rank = torch.cumsum(mask, dim=0) - 1
     scatter_compact = scatter_times(rank, None, 262_144, mask, copy_rate)
+    # the Q27 Union's parts as the engine handed them over, against the
+    # plain version too, then timed; and the fact-table UNION ALL
+    union_cols, union_counts, union_cap = q27["union_args"]
+    got = DC.concat_rows(union_cols, union_counts, union_cap)
+    want = DC.concat_rows_plain(union_cols, union_counts, union_cap)
+    for a, b in zip(got, want):
+        if not torch.equal(a, b):
+            raise AssertionError("dyncopy disagrees with its plain version "
+                                 "on Q27's Union")
+    dyncopy_err["max_abs_err"] = max(
+        [dyncopy_err["max_abs_err"]] + [_abs_err(a, b)
+                                        for a, b in zip(got, want)])
+    dyncopy_q27 = dyncopy_times(union_cols, union_counts, union_cap,
+                                copy_rate)
+    dyncopy_fact = dyncopy_times(*dyncopy_err.pop("fact_args"), copy_rate)
 
     def entry(name, replaces, launches_n, err_info, at, **more):
         return {"name": name, "route": "cuda",
@@ -1183,7 +1771,9 @@ def main() -> int:
         entry("scatter",
               "experiments/pallas_primitives.py:102, "
               "experiments/pallas_primitives.py:250",
-              launches["scatter"], {"max_abs_err": scatter_err["max_abs_err"]},
+              launches["scatter"],
+              {k: scatter_err[k]
+               for k in ("max_abs_err", "held_at_main_path_calls")},
               scatter_q15,
               shape="the Q15 view's largest scatter at SF1: compaction of "
                     "the group boundaries among 6,002,010 sorted rows",
@@ -1195,7 +1785,9 @@ def main() -> int:
               "experiments/pallas_primitives.py:78, "
               "experiments/pallas_primitives2.py:227, "
               "experiments/pallas_primitives3.py:33",
-              launches["gather"], {"max_abs_err": gather_err["max_abs_err"]},
+              launches["gather"],
+              {k: gather_err[k]
+               for k in ("max_abs_err", "held_at_main_path_calls")},
               gather_q15,
               shape="the Q15 view's largest gather at SF1: every operand of "
                     "the grouping sort through the row permutation",
@@ -1203,7 +1795,33 @@ def main() -> int:
               at_one_int64_column_6m_permutation=gather_one,
               at_one_int32_column_int32_index=gather_one32),
     ]
+    kernels.append(entry(
+        "dyncopy",
+        "experiments/pallas_primitives.py:131, "
+        "experiments/pallas_primitives.py:159, "
+        "experiments/pallas_primitives.py:188, "
+        "experiments/pallas_primitives.py:219, "
+        "experiments/pallas_primitives2.py:51, "
+        "experiments/pallas_primitives2.py:80, "
+        "experiments/pallas_primitives2.py:110, "
+        "experiments/pallas_primitives2.py:142, "
+        "experiments/pallas_primitives2.py:192",
+        launches["dyncopy"], {"max_abs_err": dyncopy_err["max_abs_err"]},
+        dyncopy_q27,
+        shape="TPC-DS Q27 at SF1: the Union of its three ROLLUP levels, "
+              "as the engine hands the parts over",
+        at_engine_shape=dyncopy_q27,
+        at_union_all_2880404_plus_1441548_rows_8_int64=dyncopy_fact))
+    for k in kernels:
+        if not isinstance(k["max_abs_err"], (int, float)) \
+                or k["max_abs_err"] != 0:
+            raise AssertionError(f"{k['name']}: max_abs_err "
+                                 f"{k['max_abs_err']!r}, not 0")
     say("engine_summary", card=card,
+        q3_ms_per_run=q3["ms_per_run"], q27_ms_per_run=q27["ms_per_run"],
+        q93_ms_per_run=q93["ms_per_run"],
+        q27_union_dyncopy_ms=dyncopy_q27["ms"],
+        fact_union_dyncopy_ms=dyncopy_fact["ms"],
         q1_ms_per_run=q1["ms_per_run"], q15view_ms_per_run=q15["ms_per_run"],
         q1_dense_kernel_ms=dense_q1["ms"],
         q15view_largest_gather_ms=gather_q15["ms"],

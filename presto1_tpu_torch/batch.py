@@ -342,3 +342,45 @@ def gather_columns(cols: Dict[str, Column], indices: torch.Tensor,
             parts["validity"] = valid if v is None else (v & valid)
         out[name] = replace(c, **parts)
     return out
+
+
+def device_counts(counts, device) -> torch.Tensor:
+    """Row counts (Python ints or 0-d device tensors) as one int64 tensor
+    on ``device``, made without a host sync."""
+    return torch.stack([
+        c.reshape(()).to(torch.int64) if isinstance(c, torch.Tensor)
+        else torch.full((), int(c), dtype=torch.int64, device=device)
+        for c in counts])
+
+
+def concat_batches(a: "RecordBatch", b: "RecordBatch",
+                   capacity: int) -> "RecordBatch":
+    """Concatenate two batches with identical column sets: the rows of
+    ``b`` follow the live rows of ``a``.  Every part of every column moves
+    in the dynamic-copy kernel (``ops/kernels/dyncopy.py``; one launch per
+    row width), with both row counts on the device.  Nested ``[n, W]``
+    parts of different widths are padded with zeros to the wider; a
+    validity mask only one side carries counts as all-valid on the other.
+    Rows past the total are zeros (the JAX package repeats ``b``'s last
+    row there; both are garbage by contract)."""
+    from .ops.kernels.dyncopy import concat_rows
+
+    device = next(iter(a.columns.values())).data.device
+    columns, slots = [], []
+    for name, ca in a.columns.items():
+        cb = b.columns[name]
+        for part in _PARTS:
+            x, y = getattr(ca, part), getattr(cb, part)
+            if x is None and y is None:
+                continue
+            columns.append([None if t is None else t.contiguous()
+                            for t in (x, y)])
+            slots.append((name, part))
+    moved = dict(zip(slots, concat_rows(
+        columns, device_counts([a.num_rows, b.num_rows], device),
+        capacity)))
+    cols = {}
+    for name, ca in a.columns.items():
+        parts = {part: moved.get((name, part)) for part in _PARTS}
+        cols[name] = replace(ca, **parts)
+    return RecordBatch(cols, a.num_rows + b.num_rows)

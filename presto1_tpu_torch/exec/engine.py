@@ -82,7 +82,9 @@ class Engine:
                 out = cq()
             else:
                 plan = self.plan(sql, user=user)
-                ex = Executor(self.catalog, stats=stats, device=self.device)
+                ex = Executor(self.catalog, stats=stats, device=self.device,
+                              dynamic_filtering=self.session.get(
+                                  "enable_dynamic_filtering"))
                 out = ex.execute(plan)
                 # eager-mode guards (wide-decimal sum overflow): the
                 # compiled path ANDs these into its one readback

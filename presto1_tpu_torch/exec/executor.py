@@ -25,13 +25,17 @@ is made from the plan's shape before anything is launched.
 
 Grouped aggregation takes the dense kernel
 (``ops/kernels/dense_group_agg.py``) for a small key domain and the sort +
-prefix-sum path otherwise; its row moves and compactions, like Sort's, go
-through the gather and scatter kernels.
+prefix-sum path otherwise; its row moves and compactions, like Sort's and
+Join's, go through the gather and scatter kernels.  UNION ALL and FULL
+OUTER JOIN copy every part's live prefix to its running offset in the
+dynamic-copy kernel (``ops/kernels/dyncopy.py``), with the part counts on
+the device.
 
 The port executes Output, SingleRow, Scan, Filter, Project, Limit,
-Aggregate (grouped or not; spilling is ROADMAP A9) and Sort; the other plan
-nodes raise ``NotImplementedError`` naming the ROADMAP item that brings
-them (``_LATER_NODES``).
+Aggregate (grouped or not; spilling is ROADMAP A9), Sort, Join (every kind;
+the spilled grace join is ROADMAP A9) and Union; the other plan nodes raise
+``NotImplementedError`` naming the ROADMAP item that brings them
+(``_LATER_NODES``).
 """
 
 from __future__ import annotations
@@ -41,13 +45,20 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from ..batch import Column, RecordBatch, round_capacity
+from ..batch import (
+    Column, RecordBatch, device_counts, round_capacity, take_clamped,
+    torch_dtype,
+)
 from ..expr import ir
-from ..expr.eval import _common_pair, bind_string_ops, eval_expr
+from ..expr.eval import (
+    _common_pair, bind_string_ops, eval_expr, lookups_on_device,
+)
 from ..ops import AggSpec, filter_batch, global_aggregate, group_aggregate
 from ..ops.filter import filter_mask
-from ..ops.common import key_ranges
+from ..ops.common import INT64_MAX, iota, key_ranges
 from ..ops.hashagg import _guard_limb_total
+from ..ops.join import cross_join, hash_join, merge_join_applicable
+from ..ops.kernels.dyncopy import concat_rows
 from ..ops.sort import SortKey, limit_batch, sort_batch
 from ..ops.kernels.filter_sum import range_filter_limb_sums
 from ..sql.logical import (
@@ -64,7 +75,6 @@ class ExecError(Exception):
 
 # plan nodes later slices bring, by ROADMAP item
 _LATER_NODES = {
-    "Join": "ROADMAP A6", "Union": "ROADMAP A7",
     "WindowNode": "ROADMAP A9", "Unnest": "ROADMAP A9",
     "MarkDistinct": "ROADMAP A9", "MergeSorted": "ROADMAP A9",
 }
@@ -75,9 +85,11 @@ class Executor:
                  record: Optional[Dict[Path, dict]] = None,
                  scan_arrays: Optional[Dict[str, torch.Tensor]] = None,
                  stats=None, stubs: Optional[Dict[Path, RecordBatch]] = None,
-                 device="cuda", route_kernels: bool = True):
+                 device="cuda", route_kernels: bool = True,
+                 dynamic_filtering: bool = True):
         self.catalog = catalog
         self.compiled = compiled
+        self.dynamic_filtering = dynamic_filtering
         self.device = torch.device(device)
         # False keeps every fragment on the generic operators (tests and
         # the on-card comparison hold the kernel path against it)
@@ -111,8 +123,17 @@ class Executor:
             if c.dictionary is not None
         }
 
-    def _bind(self, e: ir.Expr, batch: RecordBatch) -> ir.Expr:
-        return bind_string_ops(e, self._dicts(batch))
+    def _bind(self, e: ir.Expr, batch: RecordBatch, path: Path,
+              slot: str) -> ir.Expr:
+        """``e`` with its string subtrees folded into DictLookups over the
+        batch's dictionaries, their tables on the device: bound once per
+        plan and kept in the record, so a compiled run uploads nothing."""
+        rec = self._rec(path)
+        key = ("bound", slot)
+        if key not in rec:
+            rec[key] = lookups_on_device(
+                bind_string_ops(e, self._dicts(batch)), self.device)
+        return rec[key]
 
     def _shrink(self, batch: RecordBatch) -> RecordBatch:
         """Sync the row count to host and re-bucket capacity (eager only)."""
@@ -186,6 +207,37 @@ class Executor:
             return ch(0)  # stable compaction / prefix keep
         if isinstance(node, Project):
             return O.project_chain(ch(0), node.outputs)
+        if isinstance(node, Join):
+            # hash-join output is ordered by probe row (prefix-sum
+            # expansion / stable compaction); FULL appends the anti part
+            if node.kind == "full":
+                return None
+            c = ch(0)
+            if c is None and isinstance(node.left, Filter):
+                # probe Filter fused into the join mask: the Filter node
+                # never executed, but order flows through unchanged
+                c = self.chains.get(path + (0, 0))
+            if rec.get("merge_join"):
+                # the merge join emits rows in JOIN-KEY order
+                # (lexicographic over the packed key columns), with probe
+                # order within equal-key runs -- a downstream aggregation
+                # on the key takes the clustered, sort-free path
+                front = []
+                for a, b in node.equis:
+                    pos = set()
+                    if isinstance(a, ir.ColumnRef):
+                        pos.add(a.name)
+                    if node.kind == "inner" and isinstance(b, ir.ColumnRef):
+                        pos.add(b.name)
+                    if not pos:
+                        front = None
+                        break
+                    front.append(pos)
+                c = None if front is None else front + (c or [])
+                return O.restrict_chain(c, node.schema)
+            if node.kind == "inner" and node.equis:
+                c = O.add_equivalences(c, node.equis)
+            return O.restrict_chain(c, node.schema)
         if isinstance(node, Aggregate):
             primary = node.primary or node.group
             if not primary:
@@ -209,7 +261,7 @@ class Executor:
             return out
         if isinstance(node, SingleRow):
             return []
-        return None  # nodes this slice does not execute
+        return None  # Union, and nodes this slice does not execute
 
     def _x_Output(self, node: Output, path: Path) -> RecordBatch:
         b = self.execute(node.child, path + (0,))
@@ -249,7 +301,11 @@ class Executor:
             cols = {}
             for c, sym in node.symbols.items():
                 src = table.column(c, self.device)
+                # a nullable column keeps its validity (the JAX package's
+                # compiled scan drops it: ROADMAP C)
                 cols[sym] = Column(self.scan_arrays[sym], src.type,
+                                   validity=self.scan_arrays.get(
+                                       _validity_key(sym)),
                                    dictionary=src.dictionary)
             return RecordBatch(cols, table.num_rows)
         b = table.batch(list(node.symbols.keys()), self.device)
@@ -258,19 +314,23 @@ class Executor:
 
     def scan_inputs(self, node: LogicalNode) -> Dict[str, torch.Tensor]:
         """Collect {symbol: device tensor} for every scan column in the plan
-        (the compiled program's inputs)."""
+        (the compiled program's inputs), and the validity of every nullable
+        one under ``_validity_key(symbol)``."""
         out: Dict[str, torch.Tensor] = {}
         if isinstance(node, Scan):
             table = self._scan_table(node)
             for c, sym in node.symbols.items():
-                out[sym] = table.column(c, self.device).data
+                col = table.column(c, self.device)
+                out[sym] = col.data
+                if col.validity is not None:
+                    out[_validity_key(sym)] = col.validity
         for child in node.children:
             out.update(self.scan_inputs(child))
         return out
 
     def _x_Filter(self, node: Filter, path: Path) -> RecordBatch:
         child = self.execute(node.child, path + (0,))
-        pred = self._bind(node.predicate, child)
+        pred = self._bind(node.predicate, child, path, "predicate")
         rec = self._rec(path)
         if self.compiled:
             cap = rec["capacity"]
@@ -290,7 +350,8 @@ class Executor:
             if isinstance(e, ir.ColumnRef):
                 cols[sym] = child[e.name]
             else:
-                cols[sym] = eval_expr(self._bind(e, child), child)
+                cols[sym] = eval_expr(self._bind(e, child, path, f"out:{sym}"),
+                                      child)
         return RecordBatch(cols, child.num_rows)
 
     def _x_Aggregate(self, node: Aggregate, path: Path) -> RecordBatch:
@@ -309,7 +370,7 @@ class Executor:
                 m = rec.get("range_sum")
                 if m is not None:
                     return self._range_product_sum(node, path, below, m)
-            pred = self._bind(child_node.predicate, below)
+            pred = self._bind(child_node.predicate, below, path, "filter")
             mask = filter_mask(pred, below)
             child = below
         else:
@@ -319,7 +380,9 @@ class Executor:
             AggSpec(
                 a.fn,
                 None if a.arg is None
-                else eval_expr(self._bind(a.arg, child), child),
+                else eval_expr(self._bind(a.arg, child, path,
+                                          f"agg:{a.symbol}"),
+                               child),
                 a.symbol, param=a.param,
             )
             for a in node.aggs
@@ -403,6 +466,429 @@ class Executor:
             {a.symbol: Column(total[None], out_t,
                               validity=(cnt > 0)[None])}, 1)
 
+    # ---- joins
+
+    def _dynamic_filter(self, lb: RecordBatch, rb: RecordBatch,
+                        lkeys, rkeys, probe_mask):
+        """Build-side [min, max] key-domain mask over the probe, ANDed
+        into the join's probe mask (``server/DynamicFilterService.java:95``
+        min/max push-down analog).  Always a MASK, never a standalone
+        compaction: masked rows pack to the key sentinel and fall out of
+        the compaction the join already pays, so applying the domain
+        costs two reductions and a compare.  An empty build side masks
+        every probe row."""
+        eligible = [(lk, rk) for lk, rk in zip(lkeys, rkeys)
+                    if not lb[lk].type.is_string]
+        if not eligible or not self.dynamic_filtering:
+            return probe_mask
+        dev = lb[lkeys[0]].data.device
+        mask = iota(lb.capacity(), dev) < lb.num_rows
+        if rb.capacity() == 0:  # an empty domain (and nothing to reduce)
+            mask = torch.zeros_like(mask)
+            eligible = []
+        blive_base = iota(rb.capacity(), dev) < rb.num_rows
+        for lk, rk in eligible:
+            pc, bc = lb[lk], rb[rk]
+            blive = blive_base
+            if bc.validity is not None:
+                blive = blive & bc.validity
+            d = bc.data
+            if d.is_floating_point():
+                big = float("inf")
+                p = pc.data
+            else:
+                d = d.to(torch.int64)
+                big = INT64_MAX
+                p = pc.data.to(torch.int64)
+            lo = torch.amin(torch.where(blive, d, big))
+            hi = torch.amax(torch.where(blive, d, -big))
+            pm = (p >= lo) & (p <= hi)
+            if pc.validity is not None:
+                pm = pm & pc.validity
+            mask = mask & pm
+        return mask if probe_mask is None else (probe_mask & mask)
+
+    def _x_Join(self, node: Join, path: Path) -> RecordBatch:
+        # fuse an immediate probe-side Filter into a join mask (same
+        # pattern as Aggregate): the mask packs dead rows to the key
+        # sentinel, so the standalone filter compaction and its full
+        # payload move disappear -- the join's own compaction drops them.
+        # inner/semi/anti only (LEFT/FULL emit non-matching probe rows, so
+        # rows a below-join filter removed would wrongly resurface).
+        probe_mask = None
+        if (isinstance(node.left, Filter) and path + (0,) not in self.stubs
+                and node.kind in ("inner", "semi", "anti") and node.equis):
+            below = self.execute(node.left.child, path + (0, 0))
+            probe_mask = filter_mask(
+                self._bind(node.left.predicate, below, path, "filter"), below)
+            left = below
+        else:
+            left = self.execute(node.left, path + (0,))
+        right = self.execute(node.right, path + (1,))
+        rec = self._rec(path)
+
+        if node.kind == "cross":
+            if not self.compiled:
+                rec["scalar_build"] = int(right.num_rows) == 1
+            if rec.get("scalar_build"):
+                right1 = RecordBatch(
+                    {n: c.with_data(
+                        c.data[:1],
+                        c.validity[:1] if c.validity is not None else None)
+                     for n, c in right.columns.items()}, 1)
+                return cross_join(left, right1, left.capacity())
+            if self.compiled:
+                cap = rec["capacity"]
+            else:
+                cap = round_capacity(
+                    max(int(left.num_rows) * int(right.num_rows), 1))
+                rec["capacity"] = max(cap, rec.get("capacity", 0))
+            out = cross_join(left, right, cap)
+            self._check_capacity(out.num_rows, cap)
+            return self._shrink(out)
+
+        # materialise key expressions as temp columns
+        lkeys, rkeys = [], []
+        lb, rb = left, right
+        for i, (a, b) in enumerate(node.equis):
+            ln, rn = f"__lk{i}", f"__rk{i}"
+            lb = RecordBatch(
+                {**lb.columns, ln: eval_expr(self._bind(a, left, path, ln),
+                                             left)},
+                lb.num_rows)
+            rb = RecordBatch(
+                {**rb.columns, rn: eval_expr(self._bind(b, right, path, rn),
+                                             right)},
+                rb.num_rows)
+            lkeys.append(ln)
+            rkeys.append(rn)
+        if not lkeys:
+            raise ExecError(f"join without equi keys: {node.kind}")
+
+        # dynamic filtering (inner/semi only -- left/anti keep non-matching
+        # probe rows): the build side's key bounds mask the probe before
+        # the join sees it, as device values, so compiled replays keep the
+        # same shapes
+        if node.kind in ("inner", "semi"):
+            probe_mask = self._dynamic_filter(lb, rb, lkeys, rkeys,
+                                              probe_mask)
+
+        if self.compiled:
+            ranges = rec["ranges"]
+        else:
+            lr = key_ranges([lb[k] for k in lkeys], lb.num_rows)
+            rr = key_ranges([rb[k] for k in rkeys], rb.num_rows)
+            ranges = [(min(a[0], b[0]), max(a[1], b[1]))
+                      for a, b in zip(lr, rr)]
+            if "ranges" in rec:
+                ranges = [(min(a[0], b[0]), max(a[1], b[1]))
+                          for a, b in zip(ranges, rec["ranges"])]
+            rec["ranges"] = ranges
+
+        if not self.compiled:
+            # build side already sorted by the join key columns in key
+            # order (order chains): the build sort in _probe_ranges is an
+            # identity -- skip it.  NULLs would break it (null_high packs
+            # them to the top), so every build key must be non-nullable.
+            from . import ordering as O
+
+            rchain = self.chains.get(path + (1,))
+            bs = rchain is not None and len(rchain) >= len(node.equis)
+            for i, (_, b) in enumerate(node.equis):
+                bs = bs and isinstance(b, ir.ColumnRef) \
+                    and rb[rkeys[i]].validity is None \
+                    and bool(rchain) and i < len(rchain) \
+                    and b.name in rchain[i]
+            rec["build_sorted"] = rec.get("build_sorted", True) and bs
+        build_sorted = rec.get("build_sorted", False)
+
+        residual = None
+        if node.residual is not None:
+            merged = RecordBatch({**lb.columns, **rb.columns}, 0)
+            residual = self._bind(node.residual, merged, path, "residual")
+
+        if not self.compiled:
+            rec["merge_join"] = merge_join_applicable(
+                node.kind, ranges, residual,
+                node.build_unique if node.kind == "inner" else False)
+            # eager capacity guesses start from the FUSED-mask row count:
+            # the probe batch itself is unfiltered when a Filter fused in
+            rec["probe_rows"] = int(torch.sum(probe_mask)) \
+                if probe_mask is not None else int(lb.num_rows)
+        probe_rows = rec.get("probe_rows", 0)
+
+        if node.kind in ("semi", "anti"):
+            cap = round_capacity(max(probe_rows, 1)) \
+                if not self.compiled else rec["capacity"]
+            if residual is not None:
+                if self.compiled:
+                    out = hash_join(lb, rb, lkeys, rkeys, node.kind, ranges,
+                                    rec["pairs_capacity"], residual=residual,
+                                    build_sorted=build_sorted,
+                                    probe_mask=probe_mask)
+                else:
+                    cap_pairs = round_capacity(max(probe_rows * 4, 128))
+                    while True:
+                        stats: Dict[str, object] = {}
+                        out = hash_join(lb, rb, lkeys, rkeys, node.kind,
+                                        ranges, cap_pairs, residual=residual,
+                                        stats=stats,
+                                        build_sorted=build_sorted,
+                                        probe_mask=probe_mask)
+                        pairs_total = int(stats["pairs_total"])
+                        if pairs_total <= cap_pairs:
+                            break
+                        cap_pairs = round_capacity(pairs_total)
+                    rec["pairs_capacity"] = max(
+                        cap_pairs, rec.get("pairs_capacity", 0))
+            else:
+                out = hash_join(lb, rb, lkeys, rkeys, node.kind, ranges, cap,
+                                build_sorted=build_sorted,
+                                probe_mask=probe_mask)
+            if not self.compiled:
+                # the merge path's payload moves by GATHER at [capacity]:
+                # record the TIGHT discovered output count, not the
+                # probe-sized upper bound; growth trips the device guard
+                tight = round_capacity(max(int(out.num_rows), 1)) \
+                    if rec.get("merge_join") else cap
+                rec["capacity"] = max(tight, rec.get("capacity", 0))
+            self._check_capacity(out.num_rows, cap)
+            out = self._drop_temp(out)
+            return self._shrink(out)
+
+        if node.kind == "full":
+            return self._full_join(node, lb, rb, lkeys, rkeys, ranges,
+                                   residual, rec)
+
+        # inner / left
+        if self.compiled:
+            cap = rec["capacity"]
+            stats = {}
+            out = hash_join(lb, rb, lkeys, rkeys, node.kind, ranges, cap,
+                            residual=residual, stats=stats,
+                            build_unique=node.build_unique,
+                            build_sorted=build_sorted,
+                            probe_mask=probe_mask)
+            self._check_capacity(out.num_rows, cap)
+            if residual is not None and "pairs_total" in stats:
+                # a residual join compacts AFTER expansion: the pair buffer
+                # itself must not have overflowed or rows were dropped
+                self._check_capacity(stats["pairs_total"], cap)
+        else:
+            if node.build_unique:
+                cap = round_capacity(max(probe_rows, 1))
+            else:
+                cap = round_capacity(max(probe_rows * 2, 128))
+            while True:
+                stats = {}
+                out = hash_join(lb, rb, lkeys, rkeys, node.kind, ranges, cap,
+                                residual=residual, stats=stats,
+                                build_unique=node.build_unique,
+                                build_sorted=build_sorted,
+                                probe_mask=probe_mask)
+                total = int(out.num_rows)
+                if "pairs_total" in stats:
+                    total = max(total, int(stats["pairs_total"]))
+                if total <= cap:
+                    break
+                cap = round_capacity(total)
+            # merge-path inner joins gather payload at [capacity]: record
+            # the tight output count; the classic paths keep the
+            # pair-buffer-sized capacity
+            tight = round_capacity(max(int(out.num_rows), 1)) \
+                if rec.get("merge_join") else cap
+            rec["capacity"] = max(tight, rec.get("capacity", 0))
+        out = self._drop_temp(out)
+        return self._shrink(out)
+
+    def _full_join(self, node, lb, rb, lkeys, rkeys, ranges, residual, rec):
+        """FULL OUTER = left-join pairs ++ right rows with no match
+        (null-extended on the left side), concatenated by the dynamic-copy
+        kernel."""
+        from ..batch import concat_batches
+        from ..sql.optimizer import _refs, _split_ir_conjuncts
+        from ..sql.planner import ir_conjoin
+
+        cross_residual = None
+        if residual is not None:
+            # single-side ON conjuncts fold into key validity: ineligible
+            # rows never match but still emit null-extended (FULL
+            # semantics).  cross-side conjuncts stay a residual on both
+            # directed passes.
+            l_schema, r_schema = set(lb.columns), set(rb.columns)
+            lo_parts, ro_parts, x_parts = [], [], []
+            for c in _split_ir_conjuncts(residual):
+                refs = _refs(c)
+                if refs <= l_schema and not (refs & r_schema):
+                    lo_parts.append(c)
+                elif refs <= r_schema:
+                    ro_parts.append(c)
+                else:
+                    x_parts.append(c)
+            if x_parts:
+                cross_residual = ir_conjoin(x_parts)
+
+            def mask_keys(batch, parts, key_names):
+                if not parts:
+                    return batch
+                # the parts of the bound residual: their lookups are bound
+                m = filter_mask(ir_conjoin(parts), batch)
+                cols = dict(batch.columns)
+                for kname in key_names:
+                    c = cols[kname]
+                    v = m if c.validity is None else (c.validity & m)
+                    cols[kname] = Column(c.data, c.type, validity=v,
+                                         dictionary=c.dictionary)
+                return RecordBatch(cols, batch.num_rows)
+
+            lb = mask_keys(lb, lo_parts, lkeys)
+            rb = mask_keys(rb, ro_parts, rkeys)
+        if self.compiled:
+            cap_l = rec["capacity"]
+            cap_a = rec["anti_capacity"]
+            cap_f = rec["full_capacity"]
+        else:
+            cap_l = round_capacity(max(int(lb.num_rows) * 2, 128))
+            cap_a = round_capacity(max(int(rb.num_rows), 1))
+        while True:
+            stats: Dict[str, object] = {}
+            pairs = hash_join(lb, rb, lkeys, rkeys, "left", ranges, cap_l,
+                              residual=cross_residual, stats=stats)
+            if self.compiled:
+                self._check_capacity(stats["pairs_total"], cap_l)
+                break
+            total = max(int(pairs.num_rows), int(stats["pairs_total"]))
+            if total <= cap_l:
+                break
+            cap_l = round_capacity(total)
+        if cross_residual is None:
+            anti = hash_join(rb, lb, rkeys, lkeys, "anti", ranges, cap_a)
+            self._check_capacity(anti.num_rows, cap_a)
+        else:
+            # anti with residual expands candidate pairs internally: its
+            # buffer must hold the expansion, not just rb's rows
+            if self.compiled:
+                cap_ap = rec["anti_pairs_capacity"]
+                astats: Dict[str, object] = {}
+                anti = hash_join(rb, lb, rkeys, lkeys, "anti", ranges,
+                                 cap_ap, residual=cross_residual,
+                                 stats=astats)
+                self._check_capacity(astats["pairs_total"], cap_ap)
+            else:
+                cap_ap = round_capacity(max(int(rb.num_rows) * 2, 128))
+                while True:
+                    astats = {}
+                    anti = hash_join(rb, lb, rkeys, lkeys, "anti", ranges,
+                                     cap_ap, residual=cross_residual,
+                                     stats=astats)
+                    if int(astats["pairs_total"]) <= cap_ap:
+                        break
+                    cap_ap = round_capacity(int(astats["pairs_total"]))
+                rec["anti_pairs_capacity"] = max(
+                    cap_ap, rec.get("anti_pairs_capacity", 0))
+        # null-extend the left-side columns on the anti part
+        ext = dict(anti.columns)
+        n_a = anti.capacity()
+        for name, c in lb.columns.items():
+            if name not in ext:
+                ext[name] = Column(
+                    torch.zeros((n_a,) + tuple(c.data.shape[1:]),
+                                dtype=c.data.dtype, device=c.data.device),
+                    c.type, validity=torch.zeros(
+                        (n_a,), dtype=torch.bool, device=c.data.device),
+                    dictionary=c.dictionary)
+        anti_full = RecordBatch({k: ext[k] for k in pairs.columns},
+                                anti.num_rows)
+        if not self.compiled:
+            cap_f = round_capacity(
+                max(int(pairs.num_rows) + int(anti.num_rows), 1))
+            rec["capacity"] = max(cap_l, rec.get("capacity", 0))
+            rec["anti_capacity"] = max(cap_a, rec.get("anti_capacity", 0))
+            rec["full_capacity"] = max(cap_f, rec.get("full_capacity", 0))
+        out = concat_batches(pairs, anti_full, cap_f)
+        self._check_capacity(out.num_rows, cap_f)
+        return self._shrink(self._drop_temp(out))
+
+    def _grace_join(self, node: Join, path: Path, left: RecordBatch,
+                    right: RecordBatch) -> RecordBatch:
+        raise NotImplementedError(
+            "the spilled (grace) hash join is not in this slice of the "
+            "port (ROADMAP A9)")
+
+    def _drop_temp(self, b: RecordBatch) -> RecordBatch:
+        cols = {n: c for n, c in b.columns.items() if not n.startswith("__")}
+        return RecordBatch(cols, b.num_rows)
+
+    # ---- set operations
+
+    def _union_dictionaries(self, node: Union, parts) -> dict:
+        """{symbol: (merged dictionary, per-part code remaps on the
+        device)} for the varchar outputs: computed on the host once per
+        plan, as the JAX package computes them; a part without a
+        dictionary (a NULL column) has no remap."""
+        out = {}
+        for sym, t, srcs in node.outputs:
+            if not t.is_string:
+                continue
+            dicts = [parts[k][srcs[k]].dictionary for k in range(len(parts))]
+            dictionary = np.unique(np.concatenate(
+                [d if d is not None and len(d) else np.empty(0, "U1")
+                 for d in dicts]))
+            remaps = []
+            for d in dicts:
+                remaps.append(None if d is None or not len(d) else
+                              torch.from_numpy(np.searchsorted(
+                                  dictionary, d).astype(np.int32)
+                              ).to(self.device))
+            out[sym] = (dictionary, remaps)
+        return out
+
+    def _x_Union(self, node: Union, path: Path) -> RecordBatch:
+        parts = [self.execute(c, path + (i,))
+                 for i, c in enumerate(node.inputs)]
+        rec = self._rec(path)
+        counts = [p.num_rows for p in parts]
+        if self.compiled:
+            cap = rec["capacity"]
+        else:
+            cap = round_capacity(max(sum(int(c) for c in counts), 1))
+            rec["capacity"] = max(cap, rec.get("capacity", 0))
+        total = counts[0]
+        for c in counts[1:]:
+            total = total + c
+        key = ("dictionaries", str(self.device))
+        dicts = rec.get(key)
+        if dicts is None:  # once per plan; compiled runs reuse the uploads
+            dicts = rec[key] = self._union_dictionaries(node, parts)
+        columns, slots = [], []
+        for sym, t, srcs in node.outputs:
+            remaps = dicts[sym][1] if sym in dicts else [None] * len(parts)
+            want = torch_dtype(t)
+            data, valid = [], []
+            for k, p in enumerate(parts):
+                c = p[srcs[k]]
+                d = c.data
+                if remaps[k] is not None:
+                    d = take_clamped(remaps[k], d)
+                data.append(d.to(want).contiguous())
+                valid.append(None if c.validity is None
+                             else c.validity.contiguous())
+            columns.append(data)
+            slots.append((sym, "data"))
+            if any(v is not None for v in valid):
+                columns.append(valid)
+                slots.append((sym, "validity"))
+        moved = dict(zip(slots, concat_rows(
+            columns, device_counts(counts, self.device), cap)))
+        cols: Dict[str, Column] = {}
+        for sym, t, _ in node.outputs:
+            cols[sym] = Column(moved[(sym, "data")], t,
+                               validity=moved.get((sym, "validity")),
+                               dictionary=dicts[sym][0] if sym in dicts
+                               else None)
+        self._check_capacity(total, cap)
+        return self._shrink(RecordBatch(cols, total))
+
     def _x_Limit(self, node: Limit, path: Path) -> RecordBatch:
         child = self.execute(node.child, path + (0,))
         if node.offset:
@@ -414,14 +900,19 @@ class Executor:
     def _x_Sort(self, node: Sort, path: Path) -> RecordBatch:
         child = self.execute(node.child, path + (0,))
         keys = [
-            SortKey(eval_expr(self._bind(e, child), child), asc, nf)
-            for e, asc, nf in node.keys
+            SortKey(eval_expr(self._bind(e, child, path, f"key{i}"), child),
+                    asc, nf)
+            for i, (e, asc, nf) in enumerate(node.keys)
         ]
         lim = None if node.limit is None else node.limit + node.offset
         out = sort_batch(child, keys, limit=lim)
         if node.offset:
             out = _skip_rows(out, node.offset)
         return self._shrink(out)
+
+
+def _validity_key(sym: str) -> str:
+    return f"{sym}|validity"
 
 
 def _skip_rows(batch: RecordBatch, offset: int) -> RecordBatch:

@@ -165,7 +165,7 @@ def _eval(expr: Expr, batch: RecordBatch):
     if isinstance(expr, DictLookup):
         c = batch[expr.column.name]
         dev = c.data.device
-        table = to_device(np.asarray(expr.table), dev)
+        table = _on_device(expr.table, dev)
         overflow = len(expr.table) - 1
         codes = torch.where((c.data >= 0) & (c.data < overflow), c.data,
                             torch.full((), overflow, dtype=c.data.dtype,
@@ -173,13 +173,20 @@ def _eval(expr: Expr, batch: RecordBatch):
         data = take_clamped(table, codes)
         validity = c.validity
         if expr.valid_table is not None:  # NULL-bearing fold
-            ve = take_clamped(to_device(np.asarray(expr.valid_table), dev),
-                              codes)
+            ve = take_clamped(_on_device(expr.valid_table, dev), codes)
             validity = ve if validity is None else (validity & ve)
         return _norm(data, validity), validity, expr.dictionary
     if isinstance(expr, Call):
         return _eval_call(expr, batch)
     raise TypeError(f"cannot evaluate {expr}")
+
+
+def _on_device(table, device) -> torch.Tensor:
+    """A DictLookup table as a tensor on ``device`` (a host table is
+    uploaded; `lookups_on_device` does that once per plan)."""
+    if isinstance(table, torch.Tensor):
+        return table.to(device)
+    return to_device(table, device)
 
 
 def _literal_value(expr: Literal, device="cpu"):
@@ -508,6 +515,25 @@ def bind_string_ops(expr: Expr, dicts: Dict[str, np.ndarray]) -> Expr:
     if folded is not None:
         return folded
     return Call(expr.fn, tuple(bind_string_ops(a, dicts) for a in expr.args), expr.type)
+
+
+def lookups_on_device(expr: Expr, device) -> Expr:
+    """``expr`` with every DictLookup table (and validity table) moved to
+    ``device``, so evaluating it uploads nothing."""
+    if isinstance(expr, DictLookup):
+        return DictLookup(
+            expr.column, _on_device(expr.table, device), expr.type,
+            label=expr.label, dictionary=expr.dictionary,
+            valid_table=None if expr.valid_table is None
+            else _on_device(expr.valid_table, device))
+    if isinstance(expr, Lambda):
+        return Lambda(expr.params, lookups_on_device(expr.body, device),
+                      expr.type)
+    if isinstance(expr, Call):
+        return Call(expr.fn,
+                    tuple(lookups_on_device(a, device) for a in expr.args),
+                    expr.type)
+    return expr
 
 
 def _fold_const_string(expr: Call):

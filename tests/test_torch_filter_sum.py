@@ -187,8 +187,8 @@ def test_build_without_compiler_raises(monkeypatch, tmp_path):
     monkeypatch.setattr(_build, "_LIBS", {})
     with pytest.raises(_build.KernelBuildError, match="nvcc not found"):
         _build.load("filter_sum")
-    assert _build.sources() == ["dense_group_agg", "filter_sum", "gather",
-                                "scatter"]
+    assert _build.sources() == ["dense_group_agg", "dyncopy", "filter_sum",
+                                "gather", "scatter"]
 
 
 def test_build_reports_compiler_output(monkeypatch, tmp_path):

@@ -98,4 +98,25 @@ def assert_batches_equal(jb, tb, what=""):
 
 
 __all__ = ["J", "T", "both_batches", "jax_parts", "assert_columns_equal",
-           "assert_batches_equal"]
+           "assert_batches_equal", "no_host_sync"]
+
+
+def no_host_sync(monkeypatch):
+    """From here on (until ``monkeypatch`` undoes it), every call that would
+    make the host wait for a CUDA device -- a tensor read into Python, a copy
+    to the host, an upload, a data-dependent shape -- raises.  A compiled run
+    of the port must make none of them between its start and its one
+    readback."""
+    import torch
+
+    def refuse(name):
+        def call(*a, **k):
+            raise AssertionError(f"host sync inside a compiled run: {name}")
+        return call
+
+    for name in ("item", "tolist", "__bool__", "__int__", "__float__",
+                 "__index__", "numpy", "cpu"):
+        monkeypatch.setattr(torch.Tensor, name, refuse(name))
+    for name in ("tensor", "from_numpy", "nonzero", "unique", "bincount",
+                 "masked_select"):
+        monkeypatch.setattr(torch, name, refuse(name))
