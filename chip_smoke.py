@@ -125,10 +125,23 @@ def phase_build() -> None:
     spills = sorted({ln.strip() for ln in log.splitlines()
                      if "spill" in ln and "0 bytes spill stores, "
                      "0 bytes spill loads" not in ln})
+    frames = [int(f) for f in re.findall(r"(\d+) bytes stack frame", log)]
+    per_kernel, name = {}, None  # registers of each entry, largest first
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", ln)
+        if m:
+            name = m.group(1)
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and name:
+            per_kernel[name[:60]] = int(m.group(1))
+            name = None
     say("build", seconds=time.time() - t0, sources=sorted(info),
         nvcc_seconds={n: i["seconds"] for n, i in info.items()},
         kernels_compiled=len(registers),
-        max_registers=max(registers, default=None), spills=spills)
+        max_registers=max(registers, default=None),
+        max_stack_frame_bytes=max(frames, default=None), spills=spills,
+        registers_by_kernel=dict(sorted(per_kernel.items(),
+                                        key=lambda kv: -kv[1])[:12]))
 
 
 def _columns(n: int, dtypes, gen) -> tuple:
@@ -273,62 +286,159 @@ def _mixed_case(n: int, groups: int, gen, word_dtype=torch.int64):
     return word, columns, slots
 
 
+def _int_case(n: int, groups: int, gen, word_dtype=torch.int64,
+              valid: bool = False):
+    """An integer-only recipe (the int path's): every integer op over two
+    int64, an int32 and a bool column, four slots reading the first int64
+    column and four the int32 one; validity on some slots when ``valid``.
+    11 slots: at 32 groups the int path's thread tables leave room for
+    fewer than 64 threads, so the wrapper takes the general path there and
+    the check forces the int path at 32 threads."""
+    word = torch.randint(-1, groups + 1, (n,), generator=gen, device="cuda",
+                         dtype=word_dtype)
+    i64 = torch.randint(-2**62, 2**62, (n,), generator=gen, device="cuda",
+                        dtype=torch.int64)
+    i32 = torch.randint(-2**31, 2**31 - 1, (n,), generator=gen,
+                        device="cuda", dtype=torch.int32)
+    flag = torch.rand((n,), generator=gen, device="cuda") > 0.5
+    other = torch.randint(-2**40, 2**40, (n,), generator=gen, device="cuda",
+                          dtype=torch.int64)
+    v1 = v2 = None
+    if valid:
+        v1 = torch.rand((n,), generator=gen, device="cuda") > 0.3
+        v2 = torch.rand((n,), generator=gen, device="cuda") > 0.6
+    columns = [i64, i32, flag, other]
+    slots = [("sum", 0, None), ("low", 0, v1), ("high", 0, None),
+             ("min", 0, v2), ("sum", 1, v2), ("min", 1, None),
+             ("max", 1, v1), ("high", 1, v2), ("sum", 2, None),
+             ("count", None, v1), ("max", 3, None)]
+    return word, columns, slots
+
+
 def phase_kernel_check_dense(gen) -> dict:
     """``dense_group_agg`` against its plain version on the card: integer
     outputs exactly, float64 outputs to 1e-9 relative (the summation order
-    differs), and two runs of the kernel bit for bit."""
+    differs), and two runs of the kernel bit for bit -- through the path
+    the wrapper picks and through every other path that takes the recipe
+    (``int``, ``general``, ``hist``)."""
     from presto1_tpu_torch.ops.kernels import dense_group_agg as D
 
     worst_int, worst_rel, cases = 0, 0.0, 0
+    by_path = {}
 
-    def hold(word, groups, columns, slots, what):
+    def hold(word, groups, columns, slots, what,
+             paths=("int", "general", "hist")):
         nonlocal worst_int, worst_rel, cases
-        got = D.dense_group_agg(word, groups, columns, slots)
-        again = D.dense_group_agg(word, groups, columns, slots)
-        torch.cuda.synchronize()
         want = D.dense_group_agg_plain(word, groups, columns, slots)
-        for name in ("counts", "first_row", "table"):
-            if not torch.equal(getattr(got, name), getattr(again, name)):
-                raise AssertionError(f"dense_group_agg: two runs differ in "
-                                     f"{name} ({what})")
-        pairs = [("counts", got.counts, want.counts),
-                 ("first_row", got.first_row, want.first_row)]
-        pairs += [(f"slot {k} {slots[k][0]}", got.slot(k), want.slot(k))
-                  for k in range(len(slots))]
-        for name, a, b in pairs:
-            if a.dtype != b.dtype or a.shape != b.shape:
-                raise AssertionError(f"dense_group_agg {name}: {a.dtype} "
-                                     f"{tuple(a.shape)} vs plain {b.dtype} "
-                                     f"{tuple(b.shape)} ({what})")
-            if a.dtype == torch.float64:
-                rel = _rel_err(a, b)
-                worst_rel = max(worst_rel, rel)
-                if not rel <= 1e-9:
+        n = word.shape[0]
+        picked = None
+        if n:
+            sms = torch.cuda.get_device_properties(0).multi_processor_count
+            desc = ([c.dtype for c in columns],
+                    [(op, c, None if v is None else v.data_ptr())
+                     for op, c, v in slots])
+            picked = D.plan_dense(n, groups, *desc, sms).path
+        for path in (None,) + tuple(p for p in paths if p != picked):
+            if path is not None:
+                if not n:
+                    continue
+                try:
+                    D.plan_dense(n, groups, *desc, sms, path)
+                except ValueError:
+                    continue  # the recipe does not fit that path
+            got = D._dense_group_agg(word, groups, columns, slots, path)
+            again = D._dense_group_agg(word, groups, columns, slots, path)
+            torch.cuda.synchronize()
+            tag = f"{what}, path {path or picked}"
+            for name in ("counts", "first_row", "table"):
+                if not torch.equal(getattr(got, name), getattr(again, name)):
+                    raise AssertionError(f"dense_group_agg: two runs differ "
+                                         f"in {name} ({tag})")
+            pairs = [("counts", got.counts, want.counts),
+                     ("first_row", got.first_row, want.first_row)]
+            pairs += [(f"slot {k} {slots[k][0]}", got.slot(k), want.slot(k))
+                      for k in range(len(slots))]
+            for name, a, b in pairs:
+                if a.dtype != b.dtype or a.shape != b.shape:
                     raise AssertionError(
-                        f"dense_group_agg {name}: relative error {rel} "
-                        f"against its plain version ({what})")
-            else:
-                err = int((a.to(torch.int64) - b.to(torch.int64)).abs().max()) \
-                    if a.numel() else 0
-                worst_int = max(worst_int, err)
-                if err != 0:
-                    raise AssertionError(
-                        f"dense_group_agg {name} disagrees with its plain "
-                        f"version ({what}): kernel {a.tolist()} plain "
-                        f"{b.tolist()}")
-        cases += 1
+                        f"dense_group_agg {name}: {a.dtype} "
+                        f"{tuple(a.shape)} vs plain {b.dtype} "
+                        f"{tuple(b.shape)} ({tag})")
+                if a.dtype == torch.float64:
+                    rel = _rel_err(a, b)
+                    worst_rel = max(worst_rel, rel)
+                    if not rel <= 1e-9:
+                        raise AssertionError(
+                            f"dense_group_agg {name}: relative error {rel} "
+                            f"against its plain version ({tag})")
+                else:
+                    err = int((a.to(torch.int64) - b.to(torch.int64))
+                              .abs().max()) if a.numel() else 0
+                    worst_int = max(worst_int, err)
+                    if err != 0:
+                        raise AssertionError(
+                            f"dense_group_agg {name} disagrees with its "
+                            f"plain version ({tag}): kernel {a.tolist()} "
+                            f"plain {b.tolist()}")
+            key = path or picked or "no launch"
+            by_path[key] = by_path.get(key, 0) + 1
+            cases += 1
+        return picked
 
     # the probes' own shape: 2^23 int32 values over 256 bins, no slot
     vals = torch.randint(0, 256, (2**23,), generator=gen, device="cuda",
                          dtype=torch.int32)
-    hold(vals, 256, [], [], "histogram 2^23 x 256")
+    if hold(vals, 256, [], [], "histogram 2^23 x 256") != "hist":
+        raise AssertionError("the histogram did not take the hist path")
     hist = D.dense_group_agg(vals, 256, [], []).counts
     if not torch.equal(hist, torch.bincount(vals, minlength=256)):
         raise AssertionError("histogram disagrees with torch.bincount")
+    # histograms of both word types, off the 16-byte grid, few rows
+    for wdt in (torch.int32, torch.int64):
+        w = torch.randint(-2, 40, (100_003,), generator=gen, device="cuda",
+                          dtype=wdt)
+        for lo in (0, 1, 3):
+            for n in (1, 3, 5, 17, 4099, 100_000):
+                hold(w[lo:lo + n], 37, [], [],
+                     f"histogram {wdt}, rows {lo}..{lo + n}")
+        hold(torch.full((70_001,), 4, dtype=wdt, device="cuda"), 37, [], [],
+             f"histogram {wdt}, one bin")
     # the engine's shape: Q1's domain and recipe at SF1's row count
     word, columns, slots = _q1_like(6_002_010, gen)
-    hold(word, 12, columns, slots, "Q1 recipe, 6,002,010 rows")
+    if hold(word, 12, columns, slots, "Q1 recipe, 6,002,010 rows") != "int":
+        raise AssertionError("Q1's recipe did not take the int path")
     hold(word.to(torch.int32), 12, columns, slots, "Q1 recipe, int32 word")
+    # integer-only recipes at 1, 12, 32 and 256 groups (256: past the int
+    # path's budget, so the general path)
+    for groups in (1, 12, 32, 256):
+        for n in (1, 2, 3, 4099, 1_000_003):
+            for wdt in (torch.int64, torch.int32):
+                for valid in (False, True):
+                    word, columns, slots = _int_case(n, groups, gen, wdt,
+                                                     valid)
+                    hold(word, groups, columns, slots,
+                         f"integer recipe n={n} G={groups} {wdt} "
+                         f"valid={valid}")
+    # views off the 16-byte grid: all shifted alike by one and by two
+    # elements (int64 and int32 words, with and without validity), and the
+    # word shifted against its columns
+    for wdt in (torch.int64, torch.int32):
+        for valid in (False, True):
+            word, columns, slots = _int_case(70_002, 12, gen, wdt, valid)
+            for lo in (1, 2):
+                shift = [(op, c, None if v is None else v[lo:])
+                         for op, c, v in slots]
+                hold(word[lo:], 12, [c[lo:] for c in columns], shift,
+                     f"integer recipe, views from row {lo}, {wdt} word, "
+                     f"valid={valid}")
+    word, columns, slots = _int_case(70_002, 12, gen, valid=True)
+    shift = [(op, c, None if v is None else v[1:]) for op, c, v in slots]
+    keep = [(op, c, None if v is None else v[:-1]) for op, c, v in slots]
+    hold(word[1:], 12, [c[:-1] for c in columns], keep,
+         "integer recipe, word off its columns' grid")
+    hold(word[:-1], 12, [c[1:] for c in columns], shift,
+         "integer recipe, columns off the word's grid")
+    # float64 slots next to integer ones, every op, validity (general path)
     for n in (0, 1, 3, 2047, 2049, 1_000_003):
         for groups in (1, 12, 13, 100):
             for wdt in (torch.int64, torch.int32):
@@ -344,14 +454,17 @@ def phase_kernel_check_dense(gen) -> dict:
          [(op, c, None if v is None else v[1:]) for op, c, v in slots],
          "unaligned views")
     # all rows dead, and all rows in one group
-    word, columns, slots = _mixed_case(50_000, 12, gen)
-    hold(torch.full_like(word, 12), 12, columns, slots, "all dead")
-    hold(torch.full_like(word, 5), 12, columns, slots, "one group")
+    for case in (_mixed_case, _int_case):
+        word, columns, slots = case(50_000, 12, gen)
+        hold(torch.full_like(word, 12), 12, columns, slots, "all dead")
+        hold(torch.full_like(word, 5), 12, columns, slots, "one group")
     say("kernel_check", kernel="dense_group_agg", cases=cases,
-        max_abs_err=worst_int, f64_max_rel_err=worst_rel,
+        cases_by_path=by_path, max_abs_err=worst_int,
+        f64_max_rel_err=worst_rel,
         tolerance={"integers": 0, "float64_relative": 1e-9,
                    "two_runs": "bit-equal"})
-    return {"max_abs_err": float(worst_int), "f64_max_rel_err": worst_rel}
+    return {"max_abs_err": float(worst_int), "f64_max_rel_err": worst_rel,
+            "cases_by_path": by_path}
 
 
 _MOVE_DTYPES = (torch.bool, torch.int8, torch.int16, torch.int32,
@@ -457,9 +570,9 @@ def phase_kernel_check_gather(gen) -> dict:
 
 
 def phase_kernel_check_scatter(gen) -> dict:
-    """``scatter_distinct`` against its plain version on the card, exactly,
-    and ``compact_indices`` (prefix sum + this kernel) against
-    ``torch.nonzero``."""
+    """``scatter_distinct`` against its plain version on the card, exactly
+    (one column and several sharing the index and mask), and ``compact``
+    against ``torch.nonzero`` and its plain version."""
     from presto1_tpu_torch.ops.kernels import scatter as S
     from presto1_tpu_torch.ops.segments import compact_indices
 
@@ -470,15 +583,46 @@ def phase_kernel_check_scatter(gen) -> dict:
         got = S.scatter_distinct(idx, x, size, mask)
         torch.cuda.synchronize()
         want = S.scatter_distinct_plain(idx, x, size, mask)
-        if got.dtype != want.dtype or got.shape != want.shape:
-            raise AssertionError(f"scatter_distinct: {got.dtype} "
-                                 f"{tuple(got.shape)} vs plain {want.dtype} "
-                                 f"{tuple(want.shape)} ({what})")
-        worst = max(worst, _abs_err(got, want))
-        if not torch.equal(got, want):
-            raise AssertionError(f"scatter_distinct disagrees with its "
-                                 f"plain version ({what})")
+        if isinstance(x, list) != isinstance(got, list):
+            raise AssertionError(f"scatter_distinct: a list is answered by "
+                                 f"a list ({what})")
+        for a, b in zip(*((got, want) if isinstance(got, list)
+                          else ([got], [want])), strict=True):
+            if a.dtype != b.dtype or a.shape != b.shape:
+                raise AssertionError(f"scatter_distinct: {a.dtype} "
+                                     f"{tuple(a.shape)} vs plain {b.dtype} "
+                                     f"{tuple(b.shape)} ({what})")
+            worst = max(worst, _abs_err(a, b))
+            if not torch.equal(a, b):
+                raise AssertionError(f"scatter_distinct disagrees with its "
+                                     f"plain version ({what})")
         cases += 1
+
+    compactions = 0
+
+    def hold_compact(mask, capacity, what):
+        nonlocal compactions, worst
+        idx, count = S.compact(mask, capacity)
+        torch.cuda.synchronize()
+        want = torch.nonzero(mask)[:, 0]
+        live = min(capacity, int(want.shape[0]))
+        plain_idx, plain_count = S.compact_plain(mask, capacity)
+        if idx.dtype != torch.int64 or tuple(idx.shape) != (capacity,) \
+                or count.dtype != plain_count.dtype or count.dim() != 0:
+            raise AssertionError(f"compact: {idx.dtype} {tuple(idx.shape)}, "
+                                 f"count {count.dtype} {tuple(count.shape)} "
+                                 f"({what})")
+        if int(count) != int(want.shape[0]) \
+                or not torch.equal(idx[:live], want[:live]) \
+                or bool(idx[live:].any()):
+            raise AssertionError(f"compact disagrees with torch.nonzero "
+                                 f"({what})")
+        if not torch.equal(idx, plain_idx) \
+                or not torch.equal(count, plain_count):
+            raise AssertionError(f"compact disagrees with its plain version "
+                                 f"({what})")
+        worst = max(worst, _abs_err(idx, plain_idx))
+        compactions += 1
 
     # the probes' own shapes: permutations of 2048 and 8192
     for n in (2048, 8192):
@@ -499,10 +643,30 @@ def phase_kernel_check_scatter(gen) -> dict:
             hold(perm.to(idt), None, n, mask, f"n={n} iota")
             hold(perm.to(idt) - 5, None, max(n // 2, 1), None,
                  f"n={n} out of range")
+            # several columns through one index and mask: mixed widths, and
+            # as many columns as one launch takes
+            xs = [_values((n,), dt, gen) for dt in
+                  (torch.int32, torch.int64, torch.float64)]
+            hold(perm.to(idt), xs, n, mask, f"n={n} {idt} 3 columns")
+            hold(perm.to(idt) - 5, (xs * 3)[:S.MAX_COLUMNS],
+                 max(n // 2, 1), None,
+                 f"n={n} {idt} {S.MAX_COLUMNS} columns, out of range")
+    try:  # more columns than one launch takes: refused, not split
+        S.scatter_distinct(perm, [perm] * (S.MAX_COLUMNS + 1), n)
+    except ValueError:
+        pass
+    else:
+        raise AssertionError(f"scatter_distinct took {S.MAX_COLUMNS + 1} "
+                             f"columns")
     # views that start off a 16-byte boundary
     perm = torch.randperm(70_001, generator=gen, device="cuda")
     hold(perm[1:], _values((70_001,), torch.float64, gen)[1:], 70_001,
          (perm > 9)[1:], "unaligned views")
+    for lo in (1, 5, 15):
+        m = (torch.rand((70_016,), generator=gen, device="cuda") < 0.3)[lo:]
+        p = torch.randperm(m.shape[0], generator=gen, device="cuda")
+        hold(p, [p.to(torch.int32), p], m.shape[0], m,
+             f"mask {lo} bytes off the grid, 2 columns")
     # the engine's shape: compaction of a 6M-row mask at the density of the
     # Q15 view's ship-date window (91 of 2526 days)
     n = 6_002_010
@@ -513,6 +677,8 @@ def phase_kernel_check_scatter(gen) -> dict:
              f"compaction of 6,002,010 rows into {capacity}")
         hold(rank.to(torch.int32), _values((n,), torch.float64, gen),
              capacity, mask, f"6,002,010 masked rows into {capacity}")
+        hold(rank, [_values((n,), torch.int32, gen), rank.to(torch.int32)],
+             capacity, mask, f"merge_join's two columns into {capacity}")
         idx, count = compact_indices(mask, capacity)
         torch.cuda.synchronize()
         want = torch.nonzero(mask)[:, 0]
@@ -523,9 +689,24 @@ def phase_kernel_check_scatter(gen) -> dict:
             raise AssertionError(f"compact_indices disagrees with "
                                  f"torch.nonzero (capacity {capacity})")
         cases += 1
+    # the compaction: densities 0, 0.1 %, 3.6 %, 50 % and 100 %; row counts
+    # around the 16-row lane and the 4096-row tile; capacities below, at
+    # and above the count; views off the 16-byte grid
+    for density in (0.0, 0.001, 0.036, 0.5, 1.0):
+        for n in (1, 15, 16, 17, 4095, 4097, 1_000_003, 6_002_010):
+            m = torch.rand((n + 15,), generator=gen, device="cuda") < density
+            if density == 1.0:
+                m[:] = True
+            for lo in ((0, 7, 15) if n < 10**6 else (0, 3)):
+                view = m[lo:lo + n]
+                k = int(view.sum())
+                for capacity in sorted({0, k // 2, k, k + 100, n + 17}):
+                    hold_compact(view, capacity,
+                                 f"density {density}, n={n}, {lo} bytes off "
+                                 f"the grid, capacity {capacity}")
     say("kernel_check", kernel="scatter", cases=cases, max_abs_err=worst,
-        tolerance=0)
-    return {"max_abs_err": worst, "mask": mask}
+        compactions=compactions, tolerance=0)
+    return {"max_abs_err": worst, "mask": mask, "compactions": compactions}
 
 
 def phase_kernel_check_dyncopy(gen) -> dict:
@@ -663,16 +844,16 @@ def _run_ms(q, reps: int) -> float:
     return time_ms(lambda: q.block_run(reps=reps), reps=1, trials=5) / reps
 
 
-def _profile(cq, reps: int = 5) -> dict:
-    """Device time of a compiled run by kernel name, from ``torch.profiler``
-    over ``reps`` runs: the sum, and the dozen largest.  Where the profiler
-    sees no device activity the sum is None and nothing is claimed."""
+def _cuda_rows(fn, reps: int, units: int = 0) -> list:
+    """(kernel name, ms, launches) of ``reps`` calls of ``fn`` from
+    ``torch.profiler``'s device rows, divided by ``units`` (default: by
+    ``reps``), largest first."""
     from torch.profiler import ProfilerActivity, profile
 
-    cq.block_run(reps=2)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        cq.block_run(reps=reps)
+        for _ in range(reps):
+            fn()
         torch.cuda.synchronize()
     rows = []
     for ev in prof.key_averages():
@@ -682,8 +863,36 @@ def _profile(cq, reps: int = 5) -> dict:
         if us is None:
             us = getattr(ev, "self_cuda_time_total", 0)
         if us > 0:
-            rows.append((ev.key[:72], us / reps / 1e3, ev.count / reps))
+            per = units or reps
+            rows.append((ev.key[:72], us / per / 1e3, ev.count / per))
     rows.sort(key=lambda r: -r[1])
+    return rows
+
+
+def kernel_rows_ms(fn, reps: int = 20) -> dict:
+    """Device time of one call of ``fn`` as the sum of its kernel rows in
+    ``torch.profiler`` (memsets included), after two warm-up calls: for
+    calls that read a value back to the host (``torch.bincount``,
+    ``torch.nonzero``), which a CUDA graph cannot capture and whose
+    enqueued-event time includes the readback.  None where the profiler
+    sees no device activity."""
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    rows = _cuda_rows(fn, reps)
+    if not rows:
+        return {"ms": None, "kernels": None, "rows": []}
+    return {"ms": sum(r[1] for r in rows),
+            "kernels": sum(r[2] for r in rows),
+            "rows": [list(r) for r in rows[:6]]}
+
+
+def _profile(cq, reps: int = 5) -> dict:
+    """Device time of a compiled run by kernel name, from ``torch.profiler``
+    over ``reps`` runs: the sum, and the dozen largest.  Where the profiler
+    sees no device activity the sum is None and nothing is claimed."""
+    cq.block_run(reps=2)
+    rows = _cuda_rows(lambda: cq.block_run(reps=reps), 1, units=reps)
     if not rows:
         return {"device_ms_per_run": None, "top": []}
     return {"device_ms_per_run": sum(r[1] for r in rows),
@@ -855,27 +1064,48 @@ class _Tap:
             setattr(m, self.name, self.orig)
 
 
+def _launch_counters() -> dict:
+    """Every kernel wrapper's launch counter: name -> (module, attribute).
+    ``compact`` counts calls of the compaction, each of which launches the
+    scatter source's two compaction kernels."""
+    from presto1_tpu_torch.ops.kernels import (
+        dense_group_agg as D, dyncopy as DC, filter_sum as F, gather as G,
+        scatter as S)
+
+    return {"filter_sum": (F, "LAUNCHES"), "dense_group_agg": (D, "LAUNCHES"),
+            "gather": (G, "LAUNCHES"), "scatter": (S, "LAUNCHES"),
+            "compact": (S, "COMPACT_LAUNCHES"), "dyncopy": (DC, "LAUNCHES")}
+
+
 def _kernel_taps():
-    """Taps on ``gather_rows`` and ``scatter_distinct`` in every module of
-    the port that binds them."""
+    """Taps on ``gather_rows``, ``scatter_distinct`` and ``compact`` in
+    every module of the port that binds them."""
     from presto1_tpu_torch.ops import common as C, hashagg as H, \
         join as J, segments as SEG
     from presto1_tpu_torch.ops.kernels import gather as G, scatter as S
 
     # batch.py looks gather_rows up in G at each call
     return (_Tap("gather_rows", [G, C, H, SEG, J]),
-            _Tap("scatter_distinct", [S, SEG, J]))
+            _Tap("scatter_distinct", [S, J]), _Tap("compact", [S, SEG]))
 
 
-def _hold_taps(what: str, *taps) -> dict:
+# the wrapper each launch counter's kernel is tapped at
+_TAPPED = {"gather": "gather_rows", "scatter": "scatter_distinct",
+           "compact": "compact"}
+
+
+def _hold_taps(what: str, taps, must) -> dict:
     """Every call a tap kept (the largest of each kind a path made) through
     the kernel and through its plain version on the same inputs: equal by
-    ``torch.equal``, or the run fails.  Returns, per kernel, the calls held
-    and the measured largest |difference|."""
+    ``torch.equal``, or the run fails.  ``must`` names the wrappers the path
+    has to have called: a tap among them that caught no call fails the run
+    (a module that reached the kernel around the tapped name).  Returns,
+    per kernel, the calls held and the measured largest |difference|."""
     from presto1_tpu_torch.ops.kernels import gather as G, scatter as S
 
     plain = {"gather_rows": G.gather_rows_plain,
-             "scatter_distinct": S.scatter_distinct_plain}
+             "scatter_distinct": S.scatter_distinct_plain,
+             "compact": S.compact_plain}
     out = {}
     for tap in taps:
         worst, most = 0.0, 0
@@ -892,7 +1122,7 @@ def _hold_taps(what: str, *taps) -> dict:
                         f"{what}'s call {kind}")
                 worst = max(worst, _abs_err(a, b))
             most = max(most, size)
-        if not tap.calls:
+        if not tap.calls and tap.name in must:
             raise AssertionError(f"{what} made no call of {tap.name}")
         out[tap.name] = {"calls_held": len(tap.calls),
                          "largest_input_bytes": most, "max_abs_err": worst}
@@ -906,17 +1136,12 @@ def _engine_steps(engine, sql: str, check, reps: int) -> dict:
     each step, then one more compiled run with PyTorch's synchronisation
     check set to raise.  ``check(batch)`` holds a result against the host
     reference."""
-    from presto1_tpu_torch.ops.kernels import (
-        dense_group_agg as D, dyncopy as DC, filter_sum as F, gather as G,
-        scatter as S)
-
-    mods = {"filter_sum": F, "dense_group_agg": D, "gather": G, "scatter": S,
-            "dyncopy": DC}
-    for m in mods.values():
-        m.LAUNCHES = 0
+    counters = _launch_counters()
+    for m, attr in counters.values():
+        setattr(m, attr, 0)
 
     def read():
-        return {k: m.LAUNCHES for k, m in mods.items()}
+        return {k: getattr(m, attr) for k, (m, attr) in counters.items()}
 
     marks = [read()]
     eager = engine.sql(sql)
@@ -943,7 +1168,7 @@ def _engine_steps(engine, sql: str, check, reps: int) -> dict:
                              f"{compiled.num_rows}")
     names = ("sql", "compile", "call", f"block_run_{reps}")
     steps = {k: {s: marks[i + 1][k] - marks[i][k]
-                 for i, s in enumerate(names)} for k in mods}
+                 for i, s in enumerate(names)} for k in counters}
     for k, st in steps.items():
         if st[names[3]] != reps * st["call"]:
             raise AssertionError(
@@ -1054,22 +1279,25 @@ def phase_q1_engine(catalog) -> dict:
                                     f"block_run_{reps}": reps}:
         raise AssertionError(f"Q1 launched dense_group_agg "
                              f"{steps['dense_group_agg']}: not once per run")
-    if steps["gather"]["call"] < 1 or steps["scatter"]["call"] < 1:
-        raise AssertionError("Q1 did not go through gather and scatter")
+    if steps["gather"]["call"] < 1 or steps["compact"]["call"] < 1:
+        raise AssertionError("Q1 did not go through gather and the "
+                             "compaction")
     _assert_resident(run["cq"], n)
     with _Tap("dense_group_agg", [H]) as tap:  # outside the counted steps
         check(engine.sql(sql), "Engine.sql (tapped)")
     ms_trials = [_run_ms(run["cq"], reps) for _ in range(2)]
     ms = sum(ms_trials) / 2
+    profile = _profile(run["cq"])
     say("q1_engine", sf=catalog.sf, lineitem_rows=n, load_seconds=load_s,
         groups=len(want), rows=[list(r) for r in want],
         launches=run["launches"], launches_per_step=steps,
         ms_per_run=ms, ms_trials=ms_trials, rows_per_s=n / (ms * 1e-3),
-        profile=_profile(run["cq"]),
+        profile=profile,
         agrees_with=["numpy int64 (sums and counts exactly, averages to "
                      "1e-9 relative)", "eager == compiled"])
     word, groups, columns, slots = tap.args
     return {"launches": run["launches"], "ms_per_run": ms,
+            "profile": profile,
             "dense_args": (word, groups, list(columns), list(slots))}
 
 
@@ -1120,29 +1348,31 @@ def phase_q15view_engine(catalog) -> dict:
     run = _engine_steps(engine, Q15_REVENUE_VIEW, check, reps)
     _same_batches(run["eager"], run["compiled"], "Q15 view")
     steps = run["launches_per_step"]
-    if steps["gather"]["call"] < 1 or steps["scatter"]["call"] < 1:
+    if steps["gather"]["call"] < 1 or steps["compact"]["call"] < 1:
         raise AssertionError("the Q15 view did not go through gather and "
-                             "scatter")
+                             "the compaction")
     if steps["dense_group_agg"]["call"] != 0:
         raise AssertionError("the Q15 view took the dense path")
     _assert_resident(run["cq"], n)
     # outside the counted steps: the gathers and scatters of a run
-    gtap, stap = _kernel_taps()
-    with gtap, stap:
+    taps = _kernel_taps()
+    with taps[0], taps[1], taps[2]:
         check(engine.sql(Q15_REVENUE_VIEW), "Engine.sql (tapped)")
-    held = _hold_taps("the Q15 view", gtap, stap)
+    held = _hold_taps("the Q15 view", taps, must=("gather_rows", "compact"))
     ms_trials = [_run_ms(run["cq"], reps) for _ in range(2)]
     ms = sum(ms_trials) / 2
+    profile = _profile(run["cq"])
     say("q15view_engine", sf=catalog.sf, lineitem_rows=n,
         load_seconds=load_s, groups=len(want_keys), rows_selected=selected,
         first_rows=[[int(a), int(b)] for a, b in
                     zip(want_keys[:3], want_sums[:3])],
         launches=run["launches"], launches_per_step=steps,
         ms_per_run=ms, ms_trials=ms_trials, rows_per_s=n / (ms * 1e-3),
-        profile=_profile(run["cq"]), held_against_plain=held,
+        profile=profile, held_against_plain=held,
         agrees_with=["numpy int64 exactly", "eager == compiled"])
     return {"launches": run["launches"], "ms_per_run": ms, "held": held,
-            "gather_args": gtap.args, "scatter_args": stap.args}
+            "profile": profile,
+            "gather_args": taps[0].args, "compact_args": taps[2].args}
 
 
 def _load_columns(catalog, table: str, names) -> tuple:
@@ -1189,7 +1419,8 @@ def _engine_phase(name: str, engine, sql: str, check, reps: int = 20,
     """One statement down the main path with the launch counters read
     around each step; eager equals compiled; ms per run, the profile and
     the launches of every kernel on this path.  ``need``: kernels that
-    must have launched in every compiled run."""
+    must have launched in every compiled run, and whose wrappers the tapped
+    eager run must have called."""
     run = _engine_steps(engine, sql, check, reps)
     _same_batches(run["eager"], run["compiled"], name)
     steps = run["launches_per_step"]
@@ -1199,15 +1430,18 @@ def _engine_phase(name: str, engine, sql: str, check, reps: int = 20,
                                  f"compiled run: {steps[k]}")
     if not all(t.is_cuda for t in run["cq"].inputs.values()):
         raise AssertionError(f"{name}: scan inputs are not on the card")
-    # outside the counted steps: every kind of gather and scatter call the
-    # path makes, at its largest, against the plain versions
-    gtap, stap = _kernel_taps()
-    with gtap, stap:
+    # outside the counted steps: every kind of gather, scatter and
+    # compaction call the path makes, at its largest, against the plain
+    # versions
+    taps = _kernel_taps()
+    with taps[0], taps[1], taps[2]:
         check(engine.sql(sql), "Engine.sql (tapped)")
-    held = _hold_taps(name, gtap, stap)
+    held = _hold_taps(name, taps, must=[_TAPPED[k] for k in need
+                                        if k in _TAPPED])
     ms_trials = [_run_ms(run["cq"], reps) for _ in range(2)]
     return {"run": run, "ms": sum(ms_trials) / 2, "ms_trials": ms_trials,
-            "profile": _profile(run["cq"]), "held": held}
+            "profile": _profile(run["cq"]), "held": held,
+            "scatter_args": taps[1].args, "compact_args": taps[2].args}
 
 
 def _numpy_q3(li, orders, cust, seg_code: int) -> list:
@@ -1272,7 +1506,7 @@ def phase_q3_engine(catalog) -> dict:
 
     engine = Engine(catalog, device="cuda")
     out = _engine_phase("Q3", engine, QUERIES[3], check,
-                        need=("gather", "scatter"))
+                        need=("gather", "scatter", "compact"))
     run = out["run"]
     say("q3_engine", sf=catalog.sf, load_seconds=load_s,
         lineitem_rows=catalog.table("lineitem").num_rows,
@@ -1285,7 +1519,8 @@ def phase_q3_engine(catalog) -> dict:
         agrees_with=["numpy int64 exactly (top 10 rows)",
                      "eager == compiled"])
     return {"launches": run["launches"], "ms_per_run": out["ms"],
-            "held": out["held"]}
+            "profile": out["profile"], "held": out["held"],
+            "scatter_args": out["scatter_args"]}
 
 
 def _numpy_q27(catalog) -> tuple:
@@ -1385,7 +1620,7 @@ def phase_q27_engine(catalog) -> dict:
     engine = Engine(catalog, device="cuda")
     sql = QUERIES[27]
     out = _engine_phase("Q27", engine, sql, check,
-                        need=("gather", "scatter", "dyncopy"))
+                        need=("gather", "scatter", "compact", "dyncopy"))
     run = out["run"]
     with _Tap("concat_rows", [DC, X]) as tap:  # outside the counted steps
         check(engine.sql(sql), "Engine.sql (tapped)")
@@ -1398,7 +1633,8 @@ def phase_q27_engine(catalog) -> dict:
         agrees_with=["numpy (keys exactly, averages to 1e-9 relative)",
                      "eager == compiled"])
     return {"launches": run["launches"], "ms_per_run": out["ms"],
-            "held": out["held"], "union_args": tap.args}
+            "profile": out["profile"], "held": out["held"],
+            "union_args": tap.args}
 
 
 def _numpy_q93(catalog) -> tuple:
@@ -1472,7 +1708,7 @@ def phase_q93_engine(catalog) -> dict:
 
     engine = Engine(catalog, device="cuda")
     out = _engine_phase("Q93", engine, QUERIES[93], check,
-                        need=("gather", "scatter"))
+                        need=("gather", "compact"))
     run = out["run"]
     say("q93_engine", sf=catalog.sf, load_seconds=load_s,
         store_sales_rows=catalog.table("store_sales").num_rows,
@@ -1485,7 +1721,7 @@ def phase_q93_engine(catalog) -> dict:
         profile=out["profile"], held_against_plain=out["held"],
         agrees_with=["numpy int64 exactly (100 rows)", "eager == compiled"])
     return {"launches": run["launches"], "ms_per_run": out["ms"],
-            "held": out["held"]}
+            "profile": out["profile"], "held": out["held"]}
 
 
 def _bounds(nbytes: int, ops: float, copy_rate: float) -> dict:
@@ -1513,11 +1749,39 @@ def kernel_times(cols, copy_rate: float) -> dict:
             "bytes_per_s": nbytes / (ms * 1e-3)}
 
 
+class _UncachedSmCount:
+    """While active, the kernel wrappers look the device's SM count up with
+    ``torch.cuda.get_device_properties`` on every call, as they did before
+    ``_build.sm_count`` cached it: the "before" of a wrapper's host cost."""
+
+    def __enter__(self):
+        from presto1_tpu_torch.ops.kernels import _build
+
+        self.build, self.orig = _build, _build.sm_count
+        _build.sm_count = lambda dev: torch.cuda.get_device_properties(
+            dev).multi_processor_count
+        return self
+
+    def __exit__(self, *exc):
+        self.build.sm_count = self.orig
+
+
+def _call_ms(fn) -> dict:
+    """What a caller sees of ``fn`` enqueued from Python back to back (the
+    host's cost of a call, where it exceeds the kernel's time), with the SM
+    count cached and, before, looked up on every call."""
+    with _UncachedSmCount():
+        before = time_ms(fn)
+    return {"call_ms": time_ms(fn), "call_ms_uncached_sm_count": before}
+
+
 def dense_times(word, groups, columns, slots, copy_rate: float,
                 library=None) -> dict:
-    """``dense_group_agg`` at one shape.  Bytes: the word, every value
-    column and every distinct validity column once, and the outputs.
-    Operations: per row and slot a select and an add, plus the compare."""
+    """``dense_group_agg`` at one shape, through the path the wrapper picks
+    and through every other path that takes the recipe (the candidates).
+    Bytes: the word, every value column and every distinct validity column
+    once, and the outputs.  Operations: per row and slot a select and an
+    add, plus the compare."""
     from presto1_tpu_torch.ops.kernels import dense_group_agg as D
 
     n = word.shape[0]
@@ -1525,18 +1789,37 @@ def dense_times(word, groups, columns, slots, copy_rate: float,
     nbytes = n * (word.element_size()
                   + sum(c.element_size() for c in columns) + len(valids)) \
         + groups * (len(slots) + 2) * 8
+    desc = ([c.dtype for c in columns],
+            [(op, c, None if v is None else v.data_ptr())
+             for op, c, v in slots])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    plan = D.plan_dense(n, groups, *desc, sms)
+    paths = {}
+    for path in ("int", "general", "hist"):
+        try:
+            other = D.plan_dense(n, groups, *desc, sms, path)
+        except ValueError:
+            continue
+        paths[path] = {"ms": device_ms(lambda: D._dense_group_agg(
+            word, groups, columns, slots, path)), "threads": other.threads,
+            "blocks": other.blocks, "shared_bytes": other.shared}
     out = {"n": n, "groups": groups, "columns": len(columns),
-           "slots": len(slots),
-           "ms": device_ms(lambda: D.dense_group_agg(word, groups, columns,
-                                                     slots)),
+           "slots": len(slots), "path": plan.path,
+           "ms": paths[plan.path]["ms"], "paths": paths,
            "plain_ms": time_ms(lambda: D.dense_group_agg_plain(
                word, groups, columns, slots), reps=2, trials=3),
-           "call_ms": time_ms(lambda: D.dense_group_agg(word, groups,
-                                                        columns, slots)),
+           **_call_ms(lambda: D.dense_group_agg(word, groups, columns,
+                                                slots)),
            **_bounds(nbytes, n * (2 * len(slots) + 2), copy_rate),
-           # bincount reads its result's size back, so it cannot be captured
-           # into a graph: CUDA events around calls enqueued from Python
-           "library_ms": None if library is None else time_ms(library)}
+           "library_ms": None}
+    if library is not None:
+        # bincount reads its result's size back, so it cannot be captured
+        # into a graph: its kernel rows in the profiler, and beside them
+        # CUDA events around calls enqueued from Python (readback included)
+        rows = kernel_rows_ms(library)
+        out.update(library_ms=rows["ms"], library_kernels=rows["kernels"],
+                   library_rows=rows["rows"],
+                   library_enqueued_ms=time_ms(library))
     out["bytes_per_s"] = nbytes / (out["ms"] * 1e-3)
     return out
 
@@ -1571,10 +1854,11 @@ def gather_times(sources, idx, copy_rate: float) -> dict:
 
 
 def scatter_times(idx, x, size, mask, copy_rate: float) -> dict:
-    """``scatter_distinct`` at one shape.  Bytes the function needs: the
-    mask once; the index only where the mask holds, counted as the 32-byte
-    sectors of ``idx`` that hold such a row (the whole of ``idx`` without a
-    mask); the kept rows' values; and the output once (it is zero-filled)."""
+    """``scatter_distinct`` at one shape (``x`` one column or a list of
+    columns).  Bytes the function needs: the mask once; the index and the
+    values only where the mask holds, counted as the 32-byte sectors of
+    each that hold such a row (the whole index and the kept rows' values
+    without a mask); and the outputs once (they are zero-filled)."""
     from presto1_tpu_torch.ops.kernels import scatter as S
 
     n = idx.shape[0]
@@ -1583,38 +1867,99 @@ def scatter_times(idx, x, size, mask, copy_rate: float) -> dict:
     if mask is not None:
         keep = keep & mask
     kept = int(keep.sum())
-    width = x.element_size() if x is not None else 8
-    idx_w = idx.element_size()
-    idx_bytes = n * idx_w
-    sectors = None
-    if mask is not None:
-        per = 32 // idx_w  # rows of idx in one sector
+    xs = x if isinstance(x, list) else [x]
+    widths = [c.element_size() for c in xs]
+
+    def sector_bytes(w: int) -> int:
+        """Bytes of the 32-byte sectors of an array of ``w``-byte elements
+        that hold a row where the mask holds."""
+        per = 32 // w
         padded = torch.zeros((-(-n // per) * per,), dtype=torch.bool,
                              device="cuda")
         padded[:n] = mask
-        sectors = int(padded.view(-1, per).any(dim=1).sum())
-        idx_bytes = min(idx_bytes, sectors * 32)
-    nbytes = (0 if mask is None else n) + idx_bytes \
-        + (kept * width if x is not None else 0) + size * width
+        return min(n * w, 32 * int(padded.view(-1, per).any(dim=1).sum()))
+
+    if mask is None:
+        idx_bytes, x_bytes = n * idx.element_size(), kept * sum(widths)
+    else:
+        idx_bytes = sector_bytes(idx.element_size())
+        x_bytes = sum(sector_bytes(w) for w in widths)
+    nbytes = (0 if mask is None else n) + idx_bytes + x_bytes \
+        + sum(size * w for w in widths)
     target = torch.where(keep, t, size)
-    vals = x if x is not None else torch.arange(n, device="cuda")
 
     def library():
-        return torch.zeros((size + 1,), dtype=vals.dtype,
-                           device="cuda").scatter_(0, target, vals)
+        return [torch.zeros((size + 1,), dtype=v.dtype,
+                            device="cuda").scatter_(0, target, v)
+                for v in xs]
 
-    out = {"rows": n, "size": size, "kept": kept,
-           "masked": mask is not None, "iota": x is None,
-           "index_sectors_read": sectors, "index_bytes": idx_bytes,
+    out = {"rows": n, "size": size, "kept": kept, "columns": len(xs),
+           "masked": mask is not None,
+           "index_bytes": idx_bytes, "value_bytes": x_bytes,
            "ms": device_ms(lambda: S.scatter_distinct(idx, x, size, mask)),
            "plain_ms": device_ms(lambda: S.scatter_distinct_plain(
                idx, x, size, mask)),
-           "call_ms": time_ms(lambda: S.scatter_distinct(idx, x, size,
-                                                         mask)),
+           **_call_ms(lambda: S.scatter_distinct(idx, x, size, mask)),
            **_bounds(nbytes, n, copy_rate),
            "library_ms": device_ms(library),
-           "library_call": "Tensor.scatter_ into zeros, targets and values "
-                           "made beforehand"}
+           "library_call": "Tensor.scatter_ into zeros, once per column, "
+                           "targets and values made beforehand"}
+    out["bytes_per_s"] = nbytes / (out["ms"] * 1e-3)
+    return out
+
+
+def compact_times(mask, capacity: int, copy_rate: float) -> dict:
+    """``compact`` at one shape.  Bytes the function needs: the mask once,
+    ``capacity`` indices and the count written once.  Each of its two
+    kernels beside the bytes it needs (the count pass: the mask and the
+    chunk counts; the write pass: the mask, the chunk counts, the indices
+    and the count), and the device time of one one-element fill, the least
+    a launch in a graph costs.  Beside it, the composition it replaced in
+    ``compact_indices`` (sum, prefix sum, ``- 1``, then ``scatter_distinct``
+    with its zero fill: the redesigned scatter kernel, the row numbers made
+    beforehand) by graph replay and by its kernel rows, and
+    ``torch.nonzero`` (the same indices without the padding, sized on the
+    host) by its kernel rows."""
+    from presto1_tpu_torch.ops.kernels import _build, scatter as S
+
+    n = mask.shape[0]
+    kept = int(mask.sum())
+    nbytes = n + capacity * 8 + 8
+    row_numbers = torch.arange(n, device="cuda")
+
+    def composition():
+        count = torch.sum(mask)
+        rank = torch.cumsum(mask, dim=0) - 1
+        return S.scatter_distinct(rank, row_numbers, capacity, mask), count
+
+    blocks, _ = S.compact_plan(n, mask.data_ptr() % 16,
+                               _build.sm_count(mask.device))
+    pass_bytes = {"compact_count": n + 8 * blocks,
+                  "compact_write": n + 8 * blocks + capacity * 8 + 8}
+    one = torch.empty((1,), dtype=torch.int64, device="cuda")
+    rows = kernel_rows_ms(lambda: S.compact(mask, capacity))
+    passes = {name: {"ms": ms, "bytes": pass_bytes[key],
+                     "bound_ms": pass_bytes[key] / H100_BYTES_PER_S * 1e3}
+              for name, ms, _ in rows["rows"]
+              for key in pass_bytes if key in name}
+    old_rows = kernel_rows_ms(composition)
+    lib = kernel_rows_ms(lambda: torch.nonzero(mask))
+    out = {"rows": n, "capacity": capacity, "kept": kept,
+           "ms": device_ms(lambda: S.compact(mask, capacity)),
+           "kernel_rows_ms": rows["ms"], "kernels": rows["kernels"],
+           "kernel_rows": rows["rows"], "passes": passes,
+           "one_element_fill_ms": device_ms(lambda: one.zero_()),
+           "plain_ms": device_ms(lambda: S.compact_plain(mask, capacity)),
+           **_call_ms(lambda: S.compact(mask, capacity)),
+           **_bounds(nbytes, n, copy_rate),
+           "old_composition_ms": device_ms(composition),
+           "old_composition_kernel_rows_ms": old_rows["ms"],
+           "old_composition_kernels": old_rows["kernels"],
+           "old_composition_rows": old_rows["rows"],
+           "old_composition_call_ms": time_ms(composition),
+           "library_ms": lib["ms"], "library_kernels": lib["kernels"],
+           "library_call": "torch.nonzero (sizes its result on the host; "
+                           "its kernel rows only)"}
     out["bytes_per_s"] = nbytes / (out["ms"] * 1e-3)
     return out
 
@@ -1649,18 +1994,33 @@ def dyncopy_times(columns, counts, capacity: int, copy_rate: float) -> dict:
     def library():
         return [torch.cat(parts, dim=0) for parts in fills]
 
+    # the same function: the live prefixes into the output, then the zero
+    # tail (the counts known on the host)
+    total = sum(live)
+    dsts = [torch.empty_like(o) for o in outs]
+
+    def library_same():
+        for dst, parts in zip(dsts, fills):
+            torch.cat(parts, dim=0, out=dst[:total])
+            dst[total:].zero_()
+
     out = {"parts": k, "columns": len(columns), "capacity": capacity,
            "live_rows": sum(live), "read_bytes": read, "write_bytes": write,
            "ms": device_ms(lambda: DC.concat_rows(columns, counts,
                                                   capacity)),
            "plain_ms": device_ms(lambda: DC.concat_rows_plain(
                columns, counts, capacity), reps=5),
-           "call_ms": time_ms(lambda: DC.concat_rows(columns, counts,
-                                                     capacity)),
+           **_call_ms(lambda: DC.concat_rows(columns, counts, capacity)),
            **_bounds(nbytes, 0, copy_rate),
            "library_ms": device_ms(library),
            "library_call": "torch.cat of the live prefixes, counts known "
-                           "on the host, no zero tail"}
+                           "on the host, no zero tail",
+           "library_same_function_ms": device_ms(library_same)
+           if total <= capacity else None,
+           "library_same_function_call": "torch.cat of the live prefixes "
+                                         "into the output's first rows, then "
+                                         "zero_() of the rest, counts known "
+                                         "on the host"}
     out["bytes_per_s"] = nbytes / (out["ms"] * 1e-3)
     return out
 
@@ -1697,8 +2057,11 @@ def main() -> int:
                 for k in q1["launches"]}
     # the main paths' own gather and scatter calls, held against the plain
     # versions in each phase, count in the kernels' measured error
+    compact_err = {"max_abs_err": scatter_err["max_abs_err"],
+                   "compactions_checked": scatter_err.pop("compactions")}
     for held_err, name in ((gather_err, "gather_rows"),
-                           (scatter_err, "scatter_distinct")):
+                           (scatter_err, "scatter_distinct"),
+                           (compact_err, "compact")):
         held_err["max_abs_err"] = max(
             [held_err["max_abs_err"]]
             + [p["held"][name]["max_abs_err"] for p in (q15, q3, q27, q93)])
@@ -1726,11 +2089,16 @@ def main() -> int:
     perm = torch.randperm(n, generator=gen, device="cuda")
     gather_one = gather_times([q6["cols"][3]], perm, copy_rate)
     gather_one32 = gather_times([q6["cols"][0]], perm.to(i32), copy_rate)
-    scatter_q15 = scatter_times(*q15["scatter_args"], copy_rate)
+    scatter_q3 = scatter_times(*q3["scatter_args"], copy_rate)
     scatter_perm = scatter_times(perm, q6["cols"][3], n, None, copy_rate)
     mask = scatter_err.pop("mask")
     rank = torch.cumsum(mask, dim=0) - 1
-    scatter_compact = scatter_times(rank, None, 262_144, mask, copy_rate)
+    # the row numbers made beforehand: the kernel reads them at kept rows
+    scatter_compact = scatter_times(
+        rank, torch.arange(mask.shape[0], device="cuda"), 262_144, mask,
+        copy_rate)
+    compact_q15 = compact_times(*q15["compact_args"], copy_rate)
+    compact_mask = compact_times(mask, 262_144, copy_rate)
     # the Q27 Union's parts as the engine handed them over, against the
     # plain version too, then timed; and the fact-table UNION ALL
     union_cols, union_counts, union_cap = q27["union_args"]
@@ -1747,9 +2115,11 @@ def main() -> int:
                                 copy_rate)
     dyncopy_fact = dyncopy_times(*dyncopy_err.pop("fact_args"), copy_rate)
 
-    def entry(name, replaces, launches_n, err_info, at, **more):
+    def entry(name, replaces, launches_n, err_info, at, source=None,
+              **more):
         return {"name": name, "route": "cuda",
-                "source": f"presto1_tpu_torch/ops/kernels/csrc/{name}.cu",
+                "source": "presto1_tpu_torch/ops/kernels/csrc/"
+                          f"{source or name}.cu",
                 "replaces": replaces, "launches": launches_n,
                 **err_info, "ms": at["ms"], "plain_ms": at["plain_ms"],
                 "bound_ms": at["bound_ms"], "bound_by": at["bound_by"],
@@ -1774,12 +2144,26 @@ def main() -> int:
               launches["scatter"],
               {k: scatter_err[k]
                for k in ("max_abs_err", "held_at_main_path_calls")},
-              scatter_q15,
-              shape="the Q15 view's largest scatter at SF1: compaction of "
-                    "the group boundaries among 6,002,010 sorted rows",
-              at_engine_shape=scatter_q15,
+              scatter_q3,
+              shape="Q3's largest scatter at SF1: merge_join's two columns "
+                    "(sorted keys, origins) of the build entries through "
+                    "one rank and mask",
+              at_engine_shape=scatter_q3,
               at_compaction_of_view_density_mask=scatter_compact,
               at_6m_row_permutation_int64=scatter_perm),
+        entry("compact",
+              "experiments/pallas_primitives.py:102, "
+              "experiments/pallas_primitives.py:250",
+              launches["compact"],
+              {k: compact_err[k] for k in ("max_abs_err",
+                                           "held_at_main_path_calls",
+                                           "compactions_checked")},
+              compact_q15, source="scatter",
+              shape="the Q15 view's largest compaction at SF1: the group "
+                    "boundaries among 6,002,010 sorted rows",
+              launches_counted="calls of compact (two kernels each)",
+              at_engine_shape=compact_q15,
+              at_view_density_mask_into_262144=compact_mask),
         entry("gather",
               "experiments/pallas_primitives.py:54, "
               "experiments/pallas_primitives.py:78, "
@@ -1825,7 +2209,16 @@ def main() -> int:
         q1_ms_per_run=q1["ms_per_run"], q15view_ms_per_run=q15["ms_per_run"],
         q1_dense_kernel_ms=dense_q1["ms"],
         q15view_largest_gather_ms=gather_q15["ms"],
-        q15view_largest_scatter_ms=scatter_q15["ms"])
+        q15view_largest_compaction_ms=compact_q15["ms"],
+        q3_largest_scatter_ms=scatter_q3["ms"],
+        device_ms_per_run={k: p["profile"].get("device_ms_per_run")
+                           for k, p in (("q1", q1), ("q15_view", q15),
+                                        ("q3", q3), ("q27", q27),
+                                        ("q93", q93))},
+        kernels_per_run={k: p["profile"].get("kernels_per_run")
+                         for k, p in (("q1", q1), ("q15_view", q15),
+                                      ("q3", q3), ("q27", q27),
+                                      ("q93", q93))})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": device["kind"],

@@ -15,7 +15,7 @@ chains) is replaced by a fully data-parallel design:
 fall out of the same three steps.  N:1 inner and semi/anti joins take
 ``merge_join`` (one stable sort of both key sets, a prefix count, two
 compactions).  Every row move goes through the gather kernel and every
-compaction through the scatter kernel (``ops/kernels/``); sorts are
+compaction through the scatter family's kernels (``ops/kernels/``); sorts are
 ``torch.sort`` (``ops/common.sort_multi``) and the probe is
 ``torch.searchsorted``.
 """
@@ -121,8 +121,7 @@ def merge_join(
     # themselves in sorted order, compacted by that count
     seen = torch.cumsum(is_build, 0)
     rank = seen - 1
-    b_key = scatter_distinct(rank, s_key, nb, is_build)
-    b_origin = scatter_distinct(rank, s_origin, nb, is_build)
+    b_key, b_origin = scatter_distinct(rank, [s_key, s_origin], nb, is_build)
     last_bkey, borigin = gather_rows([b_key, b_origin],
                                      torch.clamp(rank, min=0))
     is_probe = ~is_build
@@ -133,7 +132,7 @@ def merge_join(
     else:
         keep = matched
     # the stable partition on ~keep (a second sort in the reference):
-    # a prefix sum + scatter keeps the live rows in key order
+    # the compaction kernel keeps the live rows in key order
     pos, count = compact_indices(keep, capacity)
     at_origin, at_borigin = gather_rows([s_origin, borigin], pos)
     pidx = torch.clamp(at_origin - nb, 0, max(np_ - 1, 0))

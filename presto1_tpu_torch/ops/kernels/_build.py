@@ -8,7 +8,9 @@ nothing falls back: without ``nvcc`` or with a source that does not compile,
 the first use raises with the compiler's output.
 
 ``build_all()`` starts one ``nvcc`` per source at once, for callers that want
-every kernel ready before they begin.
+every kernel ready before they begin.  ``sm_count(device)`` is the device's
+number of streaming multiprocessors, looked up once per device: the wrappers
+size their grids by it on every call.
 """
 
 from __future__ import annotations
@@ -22,6 +24,8 @@ import time
 from pathlib import Path
 from typing import Dict, List, Optional
 
+import torch
+
 _HERE = Path(__file__).resolve().parent
 CSRC = _HERE / "csrc"
 BUILD_DIR = _HERE / "build"
@@ -30,6 +34,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+_SMS: Dict[int, int] = {}
 # name -> {"seconds": wall time of the nvcc run (0.0 if the library was
 # already there), "log": what nvcc printed (registers, spills), "path": .so}
 BUILD_INFO: Dict[str, dict] = {}
@@ -109,3 +114,15 @@ def load(name: str) -> ctypes.CDLL:
             _finish(name, st)
         lib = _LIBS[name] = ctypes.CDLL(str(_target(name)))
     return lib
+
+
+def sm_count(device: torch.device) -> int:
+    """Streaming multiprocessors of a CUDA device (cached per device:
+    ``torch.cuda.get_device_properties`` costs microseconds a call)."""
+    index = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    sms = _SMS.get(index)
+    if sms is None:
+        sms = _SMS[index] = \
+            torch.cuda.get_device_properties(index).multi_processor_count
+    return sms

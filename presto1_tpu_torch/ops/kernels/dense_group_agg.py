@@ -30,11 +30,21 @@ a one-hot compare and sum per grid step) and the ``span`` masked passes of
 column once per candidate group (12 times for TPC-H Q1).
 
 Bound on an H100: memory, each row read once.  The CUDA kernel
-(``csrc/dense_group_agg.cu``) gives every warp private accumulators in shared
-memory; a warp walks its 32 rows with lane ``k`` owning slot ``k``, so every
-accumulator cell has one owner: no atomics, a handful of live groups do not
-contend, integer results are exact and float64 sums are reproducible from
-run to run (they differ from the plain version's by summation order only).
+(``csrc/dense_group_agg.cu``) takes one of three paths, picked by
+``plan_dense`` from the recipe and the shared-memory budget:
+
+* ``int`` -- a recipe of integers only (TPC-H Q1's): lanes own pairs of
+  rows, each column's pair copied once into shared memory by one 16-byte
+  ``cp.async`` (8 bytes for int32; two copies where a view starts off that
+  alignment); every thread folds into a private table in shared memory
+  without atomics (integer add, min and max are exact in any order), both
+  rows of a pair in one branch-free batch;
+* ``hist`` -- no slot: counts with 32-bit shared atomics, the word read 16
+  bytes a lane;
+* ``general`` -- anything else (float64 slots): lanes own slots, each cell
+  has one owner and sees its rows in order, so float64 sums are the same
+  from run to run (they differ from the plain version's by summation order
+  only).
 
 ``dense_group_agg_plain`` is the same function in plain tensor ops, one
 masked pass per group as the reference writes it.  The wrapper takes it only
@@ -59,6 +69,22 @@ LAUNCHES = 0
 MAX_GROUPS = 256
 MAX_COLUMNS = 32
 MAX_SLOTS = 64
+
+# the layout constants of csrc/dense_group_agg.cu (checked against the
+# library): shared memory a block may use, the general path's budget and most
+# threads, the int path's distinct columns, stages and plain slots held in
+# registers, the histogram's threads (the most its kernel takes)
+BLOCK_SHARED = 232_448
+GENERAL_SHARED = 200 * 1024
+GENERAL_MAX_THREADS = 256
+INT_COLUMNS = 6
+INT_STAGES = 2
+INT_PLAIN = 16
+HIST_THREADS = 256
+# the plan's own choices
+SM_SHARED = 233_472       # an SM's, of which each resident block costs 1 KB
+INT_MIN_THREADS = 64      # fewer threads a block than this: general path
+PATHS = {"general": 0, "int": 1, "hist": 2}
 
 OPS = ("sum", "low", "high", "min", "max", "count")
 Slot = Tuple[str, Optional[int], Optional[torch.Tensor]]
@@ -228,14 +254,119 @@ def dense_group_agg_plain(word, num_groups: int,
     return DenseAgg(torch.stack(counts), torch.stack(firsts), table, dtypes)
 
 
+@dataclass(frozen=True)
+class DensePlan:
+    """How one call runs: the path, threads and blocks of its main kernel,
+    and the shared memory a block of it takes.  The kernel launches with
+    these and refuses a plan whose shared bytes are not its layout's."""
+
+    path: str
+    threads: int
+    blocks: int
+    shared: int
+
+
+def _general_shared(groups: int, k: int) -> Tuple[int, int]:
+    """(warps, bytes) of the general path's block: as many warps (at most
+    8) as hold ``copies`` tables of ``groups x (k + 2)`` cells in 200 KB
+    (csrc's ``general_shared``)."""
+    sub = 32
+    if 1 <= k <= 16:
+        sub = 1 << max(k - 1, 0).bit_length()
+    info = -(-k * 32 // 8) * 8  # SlotInfo: two pointers and three ints
+    per_warp = (32 // sub) * groups * (k + 2) * 8
+    warps = min(GENERAL_MAX_THREADS // 32,
+                (GENERAL_SHARED - info) // per_warp)
+    return warps, info + warps * per_warp
+
+
+def plan_dense(n: int, num_groups: int,
+               column_dtypes: Sequence[torch.dtype], slots: Sequence[tuple],
+               sms: int, path: Optional[str] = None) -> DensePlan:
+    """The launch plan of ``dense_group_agg`` over ``n`` rows (n >= 1).
+    ``slots`` are ``(op, column index or None, validity)`` where validity
+    is None or anything that tells validity columns apart (the wrapper
+    passes their addresses); ``sms`` is the device's SMs.  ``path`` forces a
+    path (to hold one against another); by default:
+
+    * no slot: ``hist`` (rows counted in 32 bits: n < 2^32 - 1);
+    * no float64 column, at most ``INT_COLUMNS`` distinct value and
+      validity columns, and a private table (and a row of values) for
+      ``INT_MIN_THREADS`` threads or more in ``BLOCK_SHARED``: ``int``;
+    * anything else: ``general``."""
+    k = len(slots)
+    used = {c for _, c, _ in slots if c is not None}
+    reads = len(used) + len({v for _, _, v in slots if v is not None})
+
+    # plain slots add a value column without validity; the int path keeps a
+    # scratch row of values a thread unless every slot is plain
+    plain = sum(1 for op, c, v in slots if op in ("sum", "low", "high")
+                and v is None and column_dtypes[c] not in (torch.bool,
+                                                           torch.uint8))
+    scratch = plain < k or plain > INT_PLAIN
+
+    def int_shared(threads, scratch):
+        # a table and a scratch row a thread, INT_STAGES slots of 16 bytes a
+        # column and the word a thread (csrc's int_shared)
+        words = threads * num_groups * (k + 2) \
+            + (threads * INT_COLUMNS if scratch else 0)
+        return -(-words // 2) * 16 + threads * INT_STAGES * (reads + 1) * 16
+
+    def int_threads():
+        # a multiple of 16 keeps the cell-major tables free of conflicts
+        threads = 256
+        while threads > 32 and \
+                int_shared(threads, scratch) > BLOCK_SHARED:
+            threads -= 16
+        return threads
+    integers = k > 0 and reads <= INT_COLUMNS and all(
+        column_dtypes[c] != torch.float64 for c in used)
+    if path is None:
+        if k == 0:
+            path = "hist" if n < (1 << 32) - 1 else "general"
+        elif integers and int_threads() >= INT_MIN_THREADS \
+                and int_shared(INT_MIN_THREADS, scratch) <= BLOCK_SHARED:
+            path = "int"
+        else:
+            path = "general"
+    elif path == "int" and not integers \
+            or path == "hist" and (k or n >= (1 << 32) - 1):
+        raise ValueError(f"the recipe does not take the {path} path")
+    if path == "hist":
+        return DensePlan("hist", HIST_THREADS,
+                         max(1, min(-(-n // (HIST_THREADS * 16)), sms * 8)),
+                         (HIST_THREADS // 32 + 1) * num_groups * 4)
+    if path == "int":
+        threads = int_threads()
+        shared = int_shared(threads, scratch)
+        if shared > BLOCK_SHARED:
+            raise ValueError(f"{num_groups} groups x {k} slots do not fit "
+                             f"the {path} path")
+        per_sm = max(1, min(2048 // threads, SM_SHARED // (shared + 1024)))
+        blocks = max(1, min(-(-n // (threads * 16)), sms * per_sm))
+        return DensePlan(path, threads, blocks, shared)
+    warps, shared = _general_shared(num_groups, k)
+    return DensePlan("general", warps * 32,
+                     max(1, min(-(-n // 2048), sms * 8)), shared)
+
+
 def _library():
     lib = _build.load("dense_group_agg")
     fn = lib.p1_dense_group_agg
     if fn.argtypes is None:
         p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
         pp, ip = ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int)
-        fn.argtypes = [p, i, i64, i, i, pp, ip, i, ip, ip, ip, pp, i, p, p,
-                       p, p, p]
+        lib.p1_dense_geometry.argtypes = [ip]
+        lib.p1_dense_geometry.restype = None
+        got = (ctypes.c_int * 7)()
+        lib.p1_dense_geometry(got)
+        want = (BLOCK_SHARED, GENERAL_SHARED, GENERAL_MAX_THREADS,
+                INT_COLUMNS, INT_STAGES, INT_PLAIN, HIST_THREADS)
+        if tuple(got) != want:
+            raise RuntimeError(f"csrc/dense_group_agg.cu's geometry "
+                               f"{tuple(got)} is not this module's {want}")
+        fn.argtypes = [p, i, i64, i, i, pp, ip, i, ip, ip, ip, pp, i, i, i64,
+                       i, p, p, p, p, p]
         fn.restype = i
     return lib
 
@@ -249,6 +380,12 @@ def dense_group_agg(word, num_groups: int, columns: Sequence[torch.Tensor],
     contiguous int32 / int64 / float64 / bool tensors of ``word``'s length
     and device.  ``slots``: at most 64 ``(op, column index or None, valid or
     None)``."""
+    return _dense_group_agg(word, num_groups, columns, slots)
+
+
+def _dense_group_agg(word, num_groups, columns, slots,
+                     path: Optional[str] = None) -> DenseAgg:
+    """``dense_group_agg``; ``path`` forces a path of ``plan_dense``."""
     global LAUNCHES
     columns = list(columns)
     slots = list(slots)
@@ -270,13 +407,16 @@ def dense_group_agg(word, num_groups: int, columns: Sequence[torch.Tensor],
         return DenseAgg(torch.zeros((G,), dtype=torch.int64, device=dev),
                         torch.zeros((G,), dtype=torch.int64, device=dev),
                         table, dtypes)
-    counts = torch.empty((G,), dtype=torch.int64, device=dev)
-    first = torch.empty((G,), dtype=torch.int64, device=dev)
-    table = torch.empty((G, K), dtype=torch.int64, device=dev)
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    blocks = max(1, min(-(-n // 2048), sms * 8))
-    partials = torch.empty((blocks, G * (K + 2)), dtype=torch.int64,
-                           device=dev)
+    plan = plan_dense(
+        n, G, [c.dtype for c in columns],
+        [(op, c, None if v is None else v.data_ptr()) for op, c, v in slots],
+        _build.sm_count(dev), path)
+    # one allocation: counts, first rows, the table, the blocks' partials
+    GS = G * (K + 2)
+    buf = torch.empty((GS + plan.blocks * GS,), dtype=torch.int64,
+                      device=dev)
+    counts, first = buf[:G], buf[G:2 * G]
+    table = buf[2 * G:GS].view(G, K)
     ptrs_v = (ctypes.c_void_p * max(V, 1))(*[c.data_ptr() for c in columns])
     types_v = (ctypes.c_int * max(V, 1))(*[_COL_CODES[c.dtype]
                                            for c in columns])
@@ -290,12 +430,12 @@ def dense_group_agg(word, num_groups: int, columns: Sequence[torch.Tensor],
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.p1_dense_group_agg(
             word.data_ptr(), word.element_size(), n, G, V, ptrs_v, types_v,
-            K, slot_col, slot_take, slot_red, slot_valid, blocks,
-            partials.data_ptr(), counts.data_ptr(), first.data_ptr(),
-            table.data_ptr(), stream)
+            K, slot_col, slot_take, slot_red, slot_valid, PATHS[plan.path],
+            plan.threads, plan.shared, plan.blocks, buf[GS:].data_ptr(),
+            counts.data_ptr(), first.data_ptr(), table.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(
             f"dense_group_agg kernel launch failed: error {err} (n={n}, "
-            f"groups={G}, columns={V}, slots={K}, blocks={blocks})")
+            f"groups={G}, columns={V}, slots={K}, plan={plan})")
     LAUNCHES += 1
     return DenseAgg(counts, first, table, dtypes)

@@ -149,7 +149,7 @@ def _launch(lib, group, outs, counts, caps, capacity: int) -> None:
     words = out_bytes // w
     dev = counts.device
     threads = lib.p1_dyncopy_threads()
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    sms = _build.sm_count(dev)
     blocks = max(1, min(-(-(capacity * words) // threads), sms * 16))
     n = len(srcs)
     vp = ctypes.c_void_p

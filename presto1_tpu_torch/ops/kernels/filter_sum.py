@@ -112,7 +112,7 @@ def _launch(ship, disc, qty, price, bounds):
                          f"{tuple(bounds.shape)}")
     bounds = bounds.contiguous()
     rows_per_block = lib.p1_filter_sum_rows_per_block()
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    sms = _build.sm_count(dev)
     blocks = max(1, min(-(-n // rows_per_block), sms * 8))
     partials = torch.empty((blocks, 3), dtype=torch.int64, device=dev)
     with torch.cuda.device(dev):

@@ -97,7 +97,7 @@ def _launch(srcs, dsts, idx, rows: int, width: int, n: int, strides):
     dev = idx.device
     count = len(srcs)
     threads = lib.p1_gather_threads()
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    sms = _build.sm_count(dev)
     blocks = max(1, min(-(-(rows * width) // threads), sms * 16))
     ptrs = ctypes.c_void_p * count
     st = (ctypes.c_int64 * 5)(*strides)

@@ -1,52 +1,110 @@
-"""Scatter to distinct targets: ``out[idx[i]] = x[i]`` over a zeroed output.
+"""Scatter to distinct targets, and stable compaction of a mask.
 
 ``scatter_distinct(idx, x, size, mask=None)`` returns a ``[size]`` tensor of
 zeros with ``out[idx[i]] = x[i]`` for every row where ``mask`` holds (every
 row without a mask); ``x=None`` scatters the row numbers themselves
-(``x[i] = i`` as int64, generated in the kernel).  Targets are distinct by contract;
-targets outside ``[0, size)`` are dropped.
+(``x[i] = i`` as int64).  ``x`` may also be a list of up to ``MAX_COLUMNS``
+columns sharing ``idx`` and ``mask``: one launch scatters all of them and
+the result is a list.  Targets are distinct by contract; targets outside
+``[0, size)`` are dropped.
+
+``compact(mask, capacity)`` returns the stable indices of the true rows,
+padded with 0 to ``capacity`` (the first ``capacity`` of them when more rows
+are true), and their untruncated count as a 0-d int64 tensor on the mask's
+device -- the engine's ``ops/segments.py::compact_indices`` and the JAX
+package's ``presto1_tpu/ops/segments.py::compact_indices``.  No value
+reaches the host.
 
 Replaces the scatter probes of the JAX package, ``t2``
 (``zeros.at[idx].set(x)``) and ``t8`` (a per-row scalar store loop) of
-``experiments/pallas_primitives.py``.  The engine's stable compaction
-(``ops/segments.py::compact_indices``: prefix sum of the mask, then each kept
-row's number written to its rank) is this function with ``x=None``.
+``experiments/pallas_primitives.py``.
 
-Bound on an H100: memory.  ``mask`` is read once, ``idx`` and ``x`` only
-where the mask holds (all of them without a mask), coalesced; each kept row
-writes 4 or 8 bytes where ``idx`` says.  A
-compaction's targets ascend, so its writes coalesce; a random permutation
-pays a 32-byte sector a row.  The CUDA kernel (``csrc/scatter.cu``) is one
-thread a row under a grid-stride loop.
+Bound on an H100: memory.  The scatter reads the mask once, ``idx`` and
+``x`` only where the mask holds, and writes the outputs once (zeroed by one
+memset); the compaction reads the mask once and writes ``capacity`` words.
+The CUDA kernels (``csrc/scatter.cu``) read the mask 16 bytes a lane, skip
+a warp's all-false rows by ballot, and rank kept rows by popcount scans; the
+compaction is two launches (counts per chunk of the mask, then ranks and
+writes) instead of a sum, a prefix sum, a subtraction, a zero fill and a
+scatter.
 
-``scatter_distinct_plain`` is the same function in plain tensor ops.  The
-wrapper takes it only for tensors that lie on the CPU; for CUDA tensors it
-launches the kernel or raises.
+``scatter_distinct_plain`` and ``compact_plain`` are the same functions in
+plain tensor ops.  The wrappers take them only for tensors that lie on the
+CPU; for CUDA tensors they launch the kernels or raise.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import List, Optional, Sequence, Tuple, Union
 
 import torch
 
 from . import _build
 
-# launches of the CUDA kernel by this module's wrapper (and nothing else)
+# launches of the scatter kernel by ``scatter_distinct`` (and nothing else)
 LAUNCHES = 0
+# calls of ``compact`` that launched its two kernels (and nothing else)
+COMPACT_LAUNCHES = 0
+
+# the launch geometry of csrc/scatter.cu (checked against the library)
+THREADS = 256
+LANE_ROWS = 16                  # mask bytes a lane reads at once
+WARP_ROWS = 32 * LANE_ROWS      # rows a warp step of the scatter covers
+TILE_ROWS = THREADS * LANE_ROWS  # rows a tile of the compaction covers
+MAX_COLUMNS = 8                 # value columns one scatter launch takes
 
 _IDX_DTYPES = (torch.int32, torch.int64)
 _X_DTYPES = (torch.int32, torch.int64, torch.float64)
 
+Values = Union[None, torch.Tensor, Sequence[torch.Tensor]]
 
-def scatter_distinct_plain(idx: torch.Tensor, x: Optional[torch.Tensor],
-                           size: int, mask: Optional[torch.Tensor] = None
-                           ) -> torch.Tensor:
-    """Plain-tensor version of ``scatter_distinct``."""
-    n = idx.shape[0]
+
+def scatter_plan(n: int, head: int, sms: int) -> int:
+    """Blocks of one scatter launch over ``n`` rows whose mask starts
+    ``head`` bytes past a 16-byte boundary: one warp step (512 rows) a warp
+    at least, at most 8 blocks of 8 warps an SM (grid-stride beyond)."""
+    steps = -(-(head + n) // WARP_ROWS)
+    return max(1, min(-(-steps // (THREADS // 32)), sms * 8))
+
+
+def compact_plan(n: int, head: int, sms: int) -> Tuple[int, int]:
+    """(blocks, 16-byte words a block) of the compaction over ``n`` rows
+    whose mask starts ``head`` bytes past a 16-byte boundary.  Blocks own
+    whole tiles (``TILE_ROWS`` rows), at most 8 blocks an SM; the two
+    passes share this partition."""
+    words = -(-(head + n) // LANE_ROWS)
+    tiles = max(1, -(-words // THREADS))
+    per = -(-tiles // min(tiles, sms * 8))
+    return -(-tiles // per), per * THREADS
+
+
+def _check_1d(name, t, n, device):
+    if not isinstance(t, torch.Tensor) or t.dim() != 1 or t.shape[0] != n:
+        raise ValueError(f"{name}: expected a 1-D tensor of length {n}")
+    if t.device != device:
+        raise ValueError(f"{name} on {t.device}, idx on {device}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: tensor is not contiguous")
+
+
+def _columns(x: Values, idx: torch.Tensor
+             ) -> Tuple[List[torch.Tensor], bool]:
+    """The value columns of a call (None: the row numbers as int64), and
+    whether ``x`` was a list."""
     if x is None:
-        x = torch.arange(n, dtype=torch.int64, device=idx.device)
+        return [torch.arange(idx.shape[0], dtype=torch.int64,
+                             device=idx.device)], False
+    if isinstance(x, torch.Tensor):
+        return [x], False
+    cols = list(x)
+    if not cols or any(not isinstance(t, torch.Tensor) for t in cols):
+        raise ValueError("x: expected None, a tensor or a non-empty list "
+                         "of tensors")
+    return cols, True
+
+
+def _scatter_one_plain(idx, x, size, mask):
     t = idx.to(torch.int64)
     keep = (t >= 0) & (t < size)
     if mask is not None:
@@ -57,73 +115,157 @@ def scatter_distinct_plain(idx: torch.Tensor, x: Optional[torch.Tensor],
     return out[:size]
 
 
+def scatter_distinct_plain(idx: torch.Tensor, x: Values, size: int,
+                           mask: Optional[torch.Tensor] = None):
+    """Plain-tensor version of ``scatter_distinct``."""
+    cols, many = _columns(x, idx)
+    outs = [_scatter_one_plain(idx, c, size, mask) for c in cols]
+    return outs if many else outs[0]
+
+
+def compact_plain(mask: torch.Tensor, capacity: int):
+    """Plain-tensor version of ``compact``: a prefix sum of the mask gives
+    each true row its rank, and the row numbers scatter to their ranks."""
+    count = torch.sum(mask)
+    rank = torch.cumsum(mask, dim=0) - 1
+    return scatter_distinct_plain(rank, None, capacity, mask), count
+
+
 def _library():
     lib = _build.load("scatter")
     fn = lib.p1_scatter
     if fn.argtypes is None:
         p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-        fn.argtypes = [p, i, p, p, p, i, i64, i64, i, p]
+        pp, ip = ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int)
+        fn.argtypes = [p, i, p, i64, i64, i64, i, pp, ip, pp, p, i64, i, p]
         fn.restype = i
-        lib.p1_scatter_threads.argtypes = []
-        lib.p1_scatter_threads.restype = i
+        lib.p1_compact.argtypes = [p, i64, i64, i64, i, p, p, i64, p, p]
+        lib.p1_compact.restype = i
+        for name in ("p1_scatter_threads", "p1_scatter_max_columns",
+                     "p1_compact_tile_rows"):
+            getattr(lib, name).argtypes = []
+            getattr(lib, name).restype = i
+        got = (lib.p1_scatter_threads(), lib.p1_scatter_max_columns(),
+               lib.p1_compact_tile_rows())
+        if got != (THREADS, MAX_COLUMNS, TILE_ROWS):
+            raise RuntimeError(f"csrc/scatter.cu's geometry {got} is not "
+                               f"this module's")
     return lib
 
 
-def scatter_distinct(idx: torch.Tensor, x: Optional[torch.Tensor], size: int,
-                     mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+def _mask_base(mask: torch.Tensor) -> Tuple[int, int]:
+    """(16-byte-aligned address at or below the mask's first byte, bytes
+    between the two)."""
+    ptr = mask.data_ptr()
+    return ptr - ptr % 16, ptr % 16
+
+
+def scatter_distinct(idx: torch.Tensor, x: Values, size: int,
+                     mask: Optional[torch.Tensor] = None):
     """Zeros of ``[size]`` with ``out[idx[i]] = x[i]`` where ``mask[i]``.
 
     ``idx``: 1-D contiguous int32/int64.  ``x``: 1-D contiguous int32, int64
-    or float64 of the same length, or None for the row numbers as int64.
-    ``mask``: 1-D contiguous bool of the same length, or None.  Kept targets are distinct; targets outside ``[0, size)`` are
+    or float64 of the same length, None for the row numbers as int64, or a
+    list of at most ``MAX_COLUMNS`` such tensors (the result is then a list;
+    one launch).  ``mask``: 1-D contiguous bool of the same length, or
+    None.  Kept targets are distinct; targets outside ``[0, size)`` are
     dropped."""
     global LAUNCHES
     if not isinstance(idx, torch.Tensor) or idx.dim() != 1:
         raise ValueError("idx: expected a 1-D tensor")
     if idx.dtype not in _IDX_DTYPES:
         raise TypeError(f"idx: dtype {idx.dtype} is not int32/int64")
-    n = idx.shape[0]
-    others = {"x": x, "mask": mask}
-    for name, t in others.items():
-        if t is None:
-            continue
-        if not isinstance(t, torch.Tensor) or t.dim() != 1 \
-                or t.shape[0] != n:
-            raise ValueError(f"{name}: expected a 1-D tensor of length {n}")
-        if t.device != idx.device:
-            raise ValueError(f"{name} on {t.device}, idx on {idx.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name}: tensor is not contiguous")
     if not idx.is_contiguous():
         raise ValueError("idx: tensor is not contiguous")
-    if x is not None and x.dtype not in _X_DTYPES:
-        raise TypeError(f"x: dtype {x.dtype} is not int32/int64/float64")
-    if mask is not None and mask.dtype != torch.bool:
-        raise TypeError(f"mask: dtype {mask.dtype} is not bool")
+    n = idx.shape[0]
+    cols, many = _columns(x, idx)
+    if len(cols) > MAX_COLUMNS:
+        raise ValueError(f"x: {len(cols)} columns, at most {MAX_COLUMNS}")
+    for k, t in enumerate(cols):
+        _check_1d("x" if not many else f"x[{k}]", t, n, idx.device)
+        if t.dtype not in _X_DTYPES:
+            raise TypeError(f"x: dtype {t.dtype} is not int32/int64/float64")
+    if mask is not None:
+        _check_1d("mask", mask, n, idx.device)
+        if mask.dtype != torch.bool:
+            raise TypeError(f"mask: dtype {mask.dtype} is not bool")
     if size < 0:
         raise ValueError(f"size {size} is negative")
     if idx.device.type == "cpu":
-        return scatter_distinct_plain(idx, x, size, mask)
+        return scatter_distinct_plain(idx, cols if many else cols[0], size,
+                                      mask)
     if idx.device.type != "cuda":
         raise ValueError(f"unsupported device {idx.device}")
     lib = _library()
     dev = idx.device
-    out = torch.zeros((size,), dtype=torch.int64 if x is None else x.dtype,
-                      device=dev)
+    dtypes = [t.dtype for t in cols]
     if n == 0 or size == 0:  # nothing to write: no launch
-        return out
-    threads = lib.p1_scatter_threads()
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    blocks = max(1, min(-(-n // threads), sms * 16))
+        outs = [torch.zeros((size,), dtype=dt, device=dev) for dt in dtypes]
+        return outs if many else outs[0]
+    # the outputs of a launch share one buffer, zeroed by one memset
+    widths = [torch.empty((), dtype=dt).element_size() for dt in dtypes]
+    spans = [-(-size * w // 16) * 16 for w in widths]
+    buf = torch.empty((sum(spans),), dtype=torch.uint8, device=dev)
+    outs, at = [], 0
+    for dt, w, span in zip(dtypes, widths, spans):
+        outs.append(buf[at:at + size * w].view(dt))
+        at += span
+    base, head = _mask_base(mask) if mask is not None else (None, 0)
+    blocks = scatter_plan(n, head, _build.sm_count(dev))
+    k = len(cols)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.p1_scatter(
-            idx.data_ptr(), idx.element_size(),
-            None if x is None else x.data_ptr(),
-            None if mask is None else mask.data_ptr(),
-            out.data_ptr(), out.element_size(), n, size, blocks, stream)
+            idx.data_ptr(), idx.element_size(), base, head, n, size, k,
+            (ctypes.c_void_p * k)(*[c.data_ptr() for c in cols]),
+            (ctypes.c_int * k)(*widths),
+            (ctypes.c_void_p * k)(*[o.data_ptr() for o in outs]),
+            buf.data_ptr(), buf.numel(), blocks, stream)
     if err != 0:
         raise RuntimeError(f"scatter kernel launch failed: error {err} "
-                           f"(n={n}, size={size})")
+                           f"(n={n}, size={size}, columns={k})")
     LAUNCHES += 1
-    return out
+    return outs if many else outs[0]
+
+
+def compact(mask: torch.Tensor, capacity: int):
+    """(indices[capacity] int64, count) of the true rows of ``mask``: the
+    row numbers in order, padded with 0 (truncated to the first
+    ``capacity`` when more rows are true); ``count`` the number of true
+    rows, a 0-d int64 tensor on the mask's device.
+
+    ``mask``: 1-D contiguous bool."""
+    global COMPACT_LAUNCHES
+    if not isinstance(mask, torch.Tensor) or mask.dim() != 1:
+        raise ValueError("mask: expected a 1-D tensor")
+    if mask.dtype != torch.bool:
+        raise TypeError(f"mask: dtype {mask.dtype} is not bool")
+    if not mask.is_contiguous():
+        raise ValueError("mask: tensor is not contiguous")
+    if capacity < 0:
+        raise ValueError(f"capacity {capacity} is negative")
+    if mask.device.type == "cpu":
+        return compact_plain(mask, capacity)
+    if mask.device.type != "cuda":
+        raise ValueError(f"unsupported device {mask.device}")
+    lib = _library()
+    dev = mask.device
+    n = mask.shape[0]
+    if n == 0:  # nothing to read: no launch
+        return (torch.zeros((capacity,), dtype=torch.int64, device=dev),
+                torch.zeros((), dtype=torch.int64, device=dev))
+    base, head = _mask_base(mask)
+    blocks, chunk = compact_plan(n, head, _build.sm_count(dev))
+    out = torch.empty((capacity,), dtype=torch.int64, device=dev)
+    # one allocation for the chunk counts and the count
+    scratch = torch.empty((blocks + 1,), dtype=torch.int64, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.p1_compact(base, head, n, chunk, blocks,
+                             scratch.data_ptr(), out.data_ptr(), capacity,
+                             scratch[blocks:].data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"compaction kernel launch failed: error {err} "
+                           f"(n={n}, capacity={capacity}, blocks={blocks})")
+    COMPACT_LAUNCHES += 1
+    return out, scratch[blocks]

@@ -5,8 +5,8 @@ target serialises scatters, and keeps a simpler prefix-sum form for the CPU.
 The prefix-sum form is the one ported: sums per segment are differences of
 one full-length cumulative sum, which is deterministic for doubles (no float
 atomics) and exact for integers.  Min/max per segment come from one extra
-sort with the value as the trailing key.  Compaction is a prefix sum and one
-scatter to distinct targets through the scatter kernel.
+sort with the value as the trailing key.  Compaction is the compaction
+kernel of ``kernels/scatter.py``.
 """
 
 from __future__ import annotations
@@ -17,7 +17,7 @@ import torch
 from ..batch import take_clamped
 from .common import searchsorted_fast, sort_multi
 from .kernels.gather import gather_rows
-from .kernels.scatter import scatter_distinct
+from .kernels.scatter import compact
 
 
 def segment_bounds(gid_sorted: torch.Tensor, num_segments: int):
@@ -87,12 +87,8 @@ def compact_indices(mask: torch.Tensor, capacity: int):
     (indices[capacity] int64, count) with ``count`` the untruncated number of
     True rows, a 0-d tensor on the mask's device.
 
-    The output shape is static, so this is a prefix sum and one scatter to
-    distinct targets (each kept row's number written to its rank; ranks past
-    ``capacity`` are dropped by the scatter): ``torch.nonzero`` would size
-    its result on the host and stall the stream in the middle of a
-    fragment."""
-    mask = mask.contiguous()
-    count = torch.sum(mask)
-    rank = torch.cumsum(mask, dim=0) - 1
-    return scatter_distinct(rank, None, capacity, mask), count
+    The output shape is static, so this is the compaction kernel (counts
+    per chunk of the mask, then ranks by popcount and writes): nothing
+    reaches the host, where ``torch.nonzero`` would size its result on the
+    host and stall the stream in the middle of a fragment."""
+    return compact(mask.contiguous(), capacity)
