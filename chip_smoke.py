@@ -73,6 +73,19 @@ def time_ms(fn, reps: int = 20, trials: int = 5) -> float:
     return statistics.median(out)
 
 
+def in_turns(fns: dict, rounds: int = 4) -> dict:
+    """``device_ms`` of each of ``fns`` taken in turns, forwards then
+    backwards (A B C, C B A, ...): the median of ``rounds`` timings each,
+    so that a drift of the card's state during the comparison falls on
+    every candidate alike."""
+    times = {name: [] for name in fns}
+    order = list(fns)
+    for k in range(rounds):
+        for name in order if k % 2 == 0 else order[::-1]:
+            times[name].append(device_ms(fns[name]))
+    return {name: statistics.median(t) for name, t in times.items()}
+
+
 def device_ms(fn, reps: int = 20, trials: int = 5) -> float:
     """Time of one call of ``fn`` on the device alone: ``reps`` calls are
     captured into one CUDA graph, and the median over ``trials`` of the
@@ -115,25 +128,34 @@ def phase_device() -> dict:
     return info
 
 
-def phase_build() -> None:
+def phase_build():
+    """Build every kernel source and the sector-read microbenchmark, every
+    ``nvcc`` started together; returns the microbenchmark's library."""
     from presto1_tpu_torch.ops.kernels import _build
 
     t0 = time.time()
+    finish_sector_reads = start_sector_reads_build()
     info = _build.build_all()
+    sector_lib, sector_log = finish_sector_reads()
     log = "\n".join(i["log"] for i in info.values())
     registers = [int(r) for r in re.findall(r"Used (\d+) registers", log)]
     spills = sorted({ln.strip() for ln in log.splitlines()
                      if "spill" in ln and "0 bytes spill stores, "
                      "0 bytes spill loads" not in ln})
     frames = [int(f) for f in re.findall(r"(\d+) bytes stack frame", log)]
-    per_kernel, name = {}, None  # registers of each entry, largest first
+    # registers and spills of each entry (the end of its mangled name,
+    # which carries the template arguments), largest first
+    per_kernel, spilled, name = {}, {}, None
     for ln in log.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", ln)
         if m:
-            name = m.group(1)
+            name = m.group(1)[-48:]
+        m = re.search(r"(\d+) bytes spill stores", ln)
+        if m and name and int(m.group(1)):
+            spilled[name] = ln.strip()
         m = re.search(r"Used (\d+) registers", ln)
         if m and name:
-            per_kernel[name[:60]] = int(m.group(1))
+            per_kernel[name] = int(m.group(1))
             name = None
     say("build", seconds=time.time() - t0, sources=sorted(info),
         nvcc_seconds={n: i["seconds"] for n, i in info.items()},
@@ -141,7 +163,11 @@ def phase_build() -> None:
         max_registers=max(registers, default=None),
         max_stack_frame_bytes=max(frames, default=None), spills=spills,
         registers_by_kernel=dict(sorted(per_kernel.items(),
-                                        key=lambda kv: -kv[1])[:12]))
+                                        key=lambda kv: -kv[1])[:24]),
+        spills_by_kernel=spilled,
+        sector_reads_registers=[int(r) for r in re.findall(
+            r"Used (\d+) registers", sector_log)])
+    return sector_lib
 
 
 def _columns(n: int, dtypes, gen) -> tuple:
@@ -484,7 +510,10 @@ def _values(shape, dtype, gen) -> torch.Tensor:
 
 def phase_kernel_check_gather(gen) -> dict:
     """``gather_rows`` / ``take_along_axis`` against their plain versions on
-    the card, exactly."""
+    the card, exactly: the probes' shapes, a batch at a 6M permutation,
+    edge sizes, more than 32 columns and mixed widths with nested rows in
+    one launch, unaligned sources and outputs, sources beyond the L2
+    budget (column groups), 64-bit offsets."""
     from presto1_tpu_torch.ops.kernels import gather as G
 
     cases, worst = 0, 0.0
@@ -564,8 +593,59 @@ def phase_kernel_check_gather(gen) -> dict:
         for idt in (torch.int32, torch.int64):
             hold_axis(x, index(-2, 260, (100, 33), idt), 0, f"{dt} axis 0")
             hold_axis(x, index(-2, 40, (257, 9), idt), 1, f"{dt} axis 1")
+    # the row body's own shapes: more than 32 columns in ONE launch, mixed
+    # 1/2/4/8-byte columns with nested [n, W] sources in one launch, both
+    # index widths
+    launches = {}
+
+    def one_call(sources, idx, what):
+        before = G.LAUNCHES
+        hold_rows(sources, idx, what)
+        launches[what] = G.LAUNCHES - before
+
+    mixed = [_values((100_003,), dt, gen) for dt in _MOVE_DTYPES * 6]
+    one_call(mixed, index(-5, 100_010, (70_001,)), "42 columns, 7 widths")
+    nested = [_values((50_001,), dt, gen) for dt in _MOVE_DTYPES] + [
+        _values((50_001, 3), torch.int64, gen),
+        _values((50_001, 5), torch.int16, gen),
+        _values((50_001, 2), torch.int32, gen)]
+    for idt in (torch.int32, torch.int64):
+        one_call(nested, index(-5, 50_010, (33_335,), idt),
+                 f"mixed widths and nested rows, {idt}")
+    for what, n_launch in launches.items():
+        if n_launch != 1:
+            raise AssertionError(f"gather_rows made {n_launch} launches for "
+                                 f"{what}; one is the design")
+    # outputs that start off a 16-byte boundary (views of larger buffers)
+    srcs = [_values((40_000,), dt, gen) for dt in _MOVE_DTYPES]
+    idx = index(0, 40_000, (30_001,), torch.int32)
+    outs = [s.new_empty((30_001 + 3,))[3:] for s in srcs]
+    G._gather(srcs, outs, idx)
+    torch.cuda.synchronize()
+    for a, b in zip(outs, G.gather_rows_plain(srcs, idx)):
+        worst = max(worst, _abs_err(a, b))
+        if not torch.equal(a, b):
+            raise AssertionError("gather into unaligned outputs disagrees")
+    cases += 1
+    # sources beyond the L2 budget through a random index: column groups
+    n = 6_002_010
+    l2 = torch.cuda.get_device_properties(0).L2_cache_size
+    big = [_values((n,), torch.int64, gen) for _ in range(4)]
+    plan = G.plan_gather(n, n, [(8, 1)] * 4, 1, l2)
+    if plan.groups < 2:
+        raise AssertionError(f"4 int64 columns of {n} rows took one pass "
+                             f"under an L2 of {l2} bytes: {plan}")
+    perm = torch.randperm(n, generator=gen, device="cuda")
+    hold_rows(big, perm, f"4 x int64 of 6M rows, {plan.groups} groups")
+    del big, perm
+    # 64-bit offsets: a 1-D int8 source of more than 4 GiB
+    huge = torch.empty((2**32 + 4099,), dtype=torch.int8, device="cuda")
+    huge[-70_000:] = _values((70_000,), torch.int8, gen)
+    hold_rows([huge], index(2**32 - 60_000, 2**32 + 4099, (100_001,)),
+              "int8 source past 4 GiB (64-bit offsets)")
+    del huge
     say("kernel_check", kernel="gather", cases=cases, max_abs_err=worst,
-        tolerance=0)
+        tolerance=0, launches_per_call=launches)
     return {"max_abs_err": worst}
 
 
@@ -710,32 +790,39 @@ def phase_kernel_check_scatter(gen) -> dict:
 
 
 def phase_kernel_check_dyncopy(gen) -> dict:
-    """``concat_rows`` against its plain version on the card, exactly: the
-    probes' own shapes, a two-part UNION ALL at fact-table size, a FULL
-    join's shape with an empty part, nested rows of two widths, counts of
-    0, at capacity, past capacity and below zero, every element width, more
-    pairs than one launch holds, and views off a 16-byte boundary."""
+    """``concat_rows`` against the plain version on the card, exactly: the probes' own shapes, a two-part UNION ALL at
+    fact-table size, a FULL join's shape with an empty part, nested rows of
+    two widths, counts of 0, at capacity, past capacity and below zero,
+    every element width, more pairs than one launch holds, views off a
+    16-byte boundary, parts at odd row offsets, and one launch for every
+    call of several widths."""
     from presto1_tpu_torch.batch import round_capacity
     from presto1_tpu_torch.ops.kernels import dyncopy as DC
 
     cases, worst = 0, 0.0
 
     def hold(columns, counts, capacity, what):
+        """The kernel against the plain version; returns the kernel's
+        launches for the call."""
         nonlocal cases, worst
         counts = torch.tensor(counts, dtype=torch.int64, device="cuda")
+        want = DC.concat_rows_plain(columns, counts, capacity)
+        before = DC.LAUNCHES
         got = DC.concat_rows(columns, counts, capacity)
         torch.cuda.synchronize()
-        want = DC.concat_rows_plain(columns, counts, capacity)
+        launched = DC.LAUNCHES - before
         for k, (a, b) in enumerate(zip(got, want)):
             if a.dtype != b.dtype or a.shape != b.shape:
-                raise AssertionError(f"concat_rows column {k}: {a.dtype} "
-                                     f"{tuple(a.shape)} vs plain {b.dtype} "
-                                     f"{tuple(b.shape)} ({what})")
+                raise AssertionError(
+                    f"concat_rows column {k}: {a.dtype} {tuple(a.shape)} "
+                    f"vs plain {b.dtype} {tuple(b.shape)} ({what})")
             worst = max(worst, _abs_err(a, b))
             if not torch.equal(a, b):
-                raise AssertionError(f"concat_rows column {k} disagrees "
-                                     f"with its plain version ({what})")
+                raise AssertionError(
+                    f"concat_rows column {k} disagrees with its plain "
+                    f"version ({what})")
         cases += 1
+        return launched
 
     def part(n, dtypes, width=None):
         return [_values((n,) if width is None else (n, width), dt, gen)
@@ -795,8 +882,34 @@ def phase_kernel_check_dyncopy(gen) -> dict:
     hold([list(t) for t in zip(a, b)], [69_000, 20_000], 90_000,
          "unaligned views")
     hold([list(t) for t in zip(a, b)], [69_000, 20_000], 0, "capacity 0")
+    # ONE launch a call: parts at odd row offsets for int32, int16 and bool
+    # columns, three widths (and a nested column) in one call, more than 32
+    # (column, part) pairs
+    launches = {}
+
+    def one_call(columns, counts, capacity, what):
+        launches[what] = hold(columns, counts, capacity, what)
+
+    odd = [part(n, [i32, torch.int16, torch.bool]) for n in (1001, 777, 33)]
+    cols = [list(t) for t in zip(*odd)]
+    for counts in ((1001, 777, 33), (999, 775, 31), (1, 3, 5), (0, 777, 1)):
+        one_call(cols, list(counts), 2048,
+                 f"odd row offsets, counts {counts}")
+    three = [part(n, [i64, i32, torch.bool]) + [_values((n, 3), i64, gen)]
+             for n in (5003, 4001, 3)]
+    cols = [list(t) for t in zip(*three)]
+    cols[2][1] = None  # a part without a validity mask
+    one_call(cols, [5003, 3999, 3], 10_000, "3 widths and a nested column")
+    a = part(1003, [i32, torch.int16, torch.bool, i64] * 10)
+    b = part(501, [i32, torch.int16, torch.bool, i64] * 10)
+    one_call([list(t) for t in zip(a, b)], [1001, 501], 2000,
+             "80 pairs of 4 widths")
+    for what, n_launch in launches.items():
+        if n_launch != 1:
+            raise AssertionError(f"concat_rows made {n_launch} launches for "
+                                 f"{what}; one is the design")
     say("kernel_check", kernel="dyncopy", cases=cases, max_abs_err=worst,
-        tolerance=0)
+        tolerance=0, launches_per_call=launches)
     return {"max_abs_err": worst,
             "fact_args": (fact, torch.tensor([na, nb], dtype=i64,
                                              device="cuda"), cap)}
@@ -1441,7 +1554,8 @@ def _engine_phase(name: str, engine, sql: str, check, reps: int = 20,
     ms_trials = [_run_ms(run["cq"], reps) for _ in range(2)]
     return {"run": run, "ms": sum(ms_trials) / 2, "ms_trials": ms_trials,
             "profile": _profile(run["cq"]), "held": held,
-            "scatter_args": taps[1].args, "compact_args": taps[2].args}
+            "gather_args": taps[0].args, "scatter_args": taps[1].args,
+            "compact_args": taps[2].args}
 
 
 def _numpy_q3(li, orders, cust, seg_code: int) -> list:
@@ -1520,7 +1634,8 @@ def phase_q3_engine(catalog) -> dict:
                      "eager == compiled"])
     return {"launches": run["launches"], "ms_per_run": out["ms"],
             "profile": out["profile"], "held": out["held"],
-            "scatter_args": out["scatter_args"]}
+            "scatter_args": out["scatter_args"],
+            "gather_args": out["gather_args"]}
 
 
 def _numpy_q27(catalog) -> tuple:
@@ -1634,7 +1749,7 @@ def phase_q27_engine(catalog) -> dict:
                      "eager == compiled"])
     return {"launches": run["launches"], "ms_per_run": out["ms"],
             "profile": out["profile"], "held": out["held"],
-            "union_args": tap.args}
+            "union_args": tap.args, "gather_args": out["gather_args"]}
 
 
 def _numpy_q93(catalog) -> tuple:
@@ -1721,7 +1836,8 @@ def phase_q93_engine(catalog) -> dict:
         profile=out["profile"], held_against_plain=out["held"],
         agrees_with=["numpy int64 exactly (100 rows)", "eager == compiled"])
     return {"launches": run["launches"], "ms_per_run": out["ms"],
-            "profile": out["profile"], "held": out["held"]}
+            "profile": out["profile"], "held": out["held"],
+            "gather_args": out["gather_args"]}
 
 
 def _bounds(nbytes: int, ops: float, copy_rate: float) -> dict:
@@ -1824,33 +1940,336 @@ def dense_times(word, groups, columns, slots, copy_rate: float,
     return out
 
 
-def gather_times(sources, idx, copy_rate: float) -> dict:
-    """``gather_rows`` at one shape.  Bytes: the index once, one source
-    element read and one output element written per output element."""
-    from presto1_tpu_torch.ops.kernels import gather as G
+def _strided_gather_rows(sources, idx):
+    """``gather_rows`` as the earlier design made it, for the same-run
+    comparison: the same argument checks, outputs allocated one by one,
+    then one launch of the strided body (the earlier kernel, kept for
+    ``take_along_axis``) per element width of the 1-D columns (32 columns
+    a launch) and one per ``[n, W]`` matrix, each inside
+    ``torch.cuda.device``.  Launches made here count in no launch
+    counter."""
+    import ctypes
+
+    from presto1_tpu_torch.ops.kernels import _build, gather as G
 
     sources = list(sources)
-    m = idx.shape[0]
+    G._check_idx(idx, 1)
+    for k, s in enumerate(sources):
+        if not isinstance(s, torch.Tensor) or s.device != idx.device \
+                or s.dim() not in (1, 2) \
+                or s.shape[0] != sources[0].shape[0] \
+                or s.element_size() not in (1, 2, 4, 8) \
+                or not s.is_contiguous():
+            raise ValueError(f"sources[{k}]")
+    lib = G._library()
+    m, n = idx.shape[0], sources[0].shape[0]
+    idx = idx.contiguous()
+    outs = [torch.empty((m,) + tuple(s.shape[1:]), dtype=s.dtype,
+                        device=s.device) for s in sources]
+
+    def launch(srcs, dsts, width, strides):
+        dev = idx.device
+        blocks = max(1, min(-(-(m * width) // G.THREADS),
+                            _build.sm_count(dev) * 16))
+        ptrs = ctypes.c_void_p * len(srcs)
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            err = lib.p1_gather_strided(
+                ptrs(*[t.data_ptr() for t in srcs]),
+                ptrs(*[t.data_ptr() for t in dsts]), len(srcs),
+                srcs[0].element_size(), idx.data_ptr(), idx.element_size(),
+                m, width, n, (ctypes.c_int64 * 5)(*strides), blocks, stream)
+        if err != 0:
+            raise RuntimeError(f"strided gather launch failed: error {err}")
+
+    by_width: dict = {}
+    for k, s in enumerate(sources):
+        if s.dim() == 1:
+            by_width.setdefault(s.element_size(), []).append(k)
+    for ks in by_width.values():
+        for at in range(0, len(ks), G.MAX_PAIRS):
+            part = ks[at:at + G.MAX_PAIRS]
+            launch([sources[k] for k in part], [outs[k] for k in part], 1,
+                   (1, 0, 1, 0, 0))
+    for k, s in enumerate(sources):
+        if s.dim() == 2 and s.shape[1] > 0:
+            w = s.shape[1]
+            launch([s], [outs[k]], w, (1, 0, w, 0, 1))
+    return outs
+
+
+# Random 32-byte sector reads and nothing else: no index stream, no output,
+# one 4-byte load at the start of a hashed random sector, L loads a thread
+# issued before any is used.  The yardstick of a random gather on this card,
+# measured apart from any gather.
+SECTOR_READS_CU = r"""
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+
+// murmur3's 32-bit finaliser: consecutive inputs to unrelated outputs
+__device__ __forceinline__ uint32_t mix(uint32_t x) {
+  x ^= x >> 16;
+  x *= 0x85ebca6bu;
+  x ^= x >> 13;
+  x *= 0xc2b2ae35u;
+  x ^= x >> 16;
+  return x;
+}
+
+// `rounds` rounds a thread of L independent loads, each of the first word
+// of a random one of `sectors` 32-byte sectors of `src`
+template <int L>
+__global__ void __launch_bounds__(kThreads)
+sector_reads(const uint32_t* __restrict__ src, uint32_t sectors, int rounds,
+             uint32_t seed, uint32_t* __restrict__ sink) {
+  const uint32_t t = blockIdx.x * kThreads + threadIdx.x;
+  uint32_t acc = 0;
+#pragma unroll 1
+  for (int k = 0; k < rounds; ++k) {
+    uint32_t v[L];
+#pragma unroll
+    for (int l = 0; l < L; ++l) {
+      const uint32_t h = mix(seed + (t * rounds + k) * L + l);
+      v[l] = __ldg(src + 8 * static_cast<uint64_t>(__umulhi(h, sectors)));
+    }
+#pragma unroll
+    for (int l = 0; l < L; ++l) acc += v[l];
+  }
+  if (acc == 0xffffffffu) sink[0] = acc;  // keeps the loads; a zero source
+}
+
+template <int L>
+int blocks_per_sm() {
+  int n = 0;
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, sector_reads<L>,
+                                                kThreads, 0);
+  return n;
+}
+
+template <int L>
+int launch(const void* src, uint32_t sectors, int rounds, int blocks,
+           uint32_t seed, void* sink, void* stream) {
+  sector_reads<L><<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(src), sectors, rounds, seed,
+      static_cast<uint32_t*>(sink));
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// resident blocks an SM at `loads` loads a thread; 0 for another count
+extern "C" int p1_sector_blocks_per_sm(int loads) {
+  switch (loads) {
+    case 1: return blocks_per_sm<1>();
+    case 2: return blocks_per_sm<2>();
+    case 4: return blocks_per_sm<4>();
+    case 8: return blocks_per_sm<8>();
+    case 16: return blocks_per_sm<16>();
+    case 32: return blocks_per_sm<32>();
+    default: return 0;
+  }
+}
+
+// `blocks` blocks of `rounds` rounds of `loads` loads a thread
+extern "C" int p1_sector_reads(const void* src, uint32_t sectors, int loads,
+                               int rounds, int blocks, uint32_t seed,
+                               void* sink, void* stream) {
+  switch (loads) {
+    case 1: return launch<1>(src, sectors, rounds, blocks, seed, sink, stream);
+    case 2: return launch<2>(src, sectors, rounds, blocks, seed, sink, stream);
+    case 4: return launch<4>(src, sectors, rounds, blocks, seed, sink, stream);
+    case 8: return launch<8>(src, sectors, rounds, blocks, seed, sink, stream);
+    case 16:
+      return launch<16>(src, sectors, rounds, blocks, seed, sink, stream);
+    case 32:
+      return launch<32>(src, sectors, rounds, blocks, seed, sink, stream);
+    default: return -1;
+  }
+}
+"""
+SECTOR_LOADS = (1, 2, 4, 8, 16, 32)  # loads in flight a thread, swept
+
+
+def start_sector_reads_build():
+    """Start ``nvcc`` for ``SECTOR_READS_CU`` in the kernels' build
+    directory; returns a function that waits for it and loads the
+    library."""
+    import ctypes
+    import hashlib
+
+    from presto1_tpu_torch.ops.kernels import _build
+
+    digest = hashlib.sha1(SECTOR_READS_CU.encode()).hexdigest()[:12]
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    src = _build.BUILD_DIR / f"sector_reads-{digest}.cu"
+    out = _build.BUILD_DIR / f"libsector_reads-{digest}.so"
+    src.write_text(SECTOR_READS_CU)
+    proc = subprocess.Popen(
+        [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(out), str(src)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+    def finish():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for the sector-read "
+                               f"microbenchmark:\n{log}")
+        lib = ctypes.CDLL(str(out))
+        i, p = ctypes.c_int, ctypes.c_void_p
+        lib.p1_sector_blocks_per_sm.argtypes = [i]
+        lib.p1_sector_blocks_per_sm.restype = i
+        lib.p1_sector_reads.argtypes = [p, ctypes.c_uint32, i, i, i,
+                                        ctypes.c_uint32, p, p]
+        lib.p1_sector_reads.restype = i
+        return lib, log
+    return finish
+
+
+def sector_rate(lib, nbytes: int, loads: int) -> dict:
+    """Random 32-byte sector reads per second from a zeroed source of
+    ``nbytes``, by ``SECTOR_READS_CU`` at ``loads`` loads in flight a
+    thread, every SM at the occupancy the kernel allows, 2^25 reads a
+    launch, by graph replay."""
+    from presto1_tpu_torch.ops.kernels import _build
+
+    src = torch.zeros((nbytes // 4,), dtype=torch.int32, device="cuda")
+    sink = torch.zeros((1,), dtype=torch.int32, device="cuda")
+    per_sm = lib.p1_sector_blocks_per_sm(loads)
+    blocks = _build.sm_count(src.device) * per_sm
+    rounds = -(-(1 << 25) // (blocks * 256 * loads))
+    sectors = nbytes // 32
+
+    def run():
+        err = lib.p1_sector_reads(src.data_ptr(), sectors, loads, rounds,
+                                  blocks, 12345, sink.data_ptr(),
+                                  torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"sector reads launch failed: error {err}")
+
+    ms = device_ms(run, reps=5)
+    reads = blocks * 256 * rounds * loads
+    return {"source_bytes": nbytes, "loads_in_flight": loads,
+            "blocks_per_sm": per_sm, "reads": reads, "ms": ms,
+            "sectors_per_s": reads / (ms * 1e-3)}
+
+
+def phase_random_sector_rate(gen, lib) -> dict:
+    """The card's random 32-byte sector reads per second (``sector_rate``,
+    sector reads and nothing else), swept over 1 to 32 loads in flight a
+    thread, from int32 sources of half the L2 (``L2_cache_size``), of the
+    L2's size and of four times it.  Beside each, the gather kernel and
+    ``index_select`` at 2^24 random sector reads from the same source
+    (their int32 index and output streams besides)."""
+    from presto1_tpu_torch.ops.kernels import _build, gather as G
+
+    l2 = _build.l2_bytes(torch.device("cuda", 0))
+    m = 1 << 24
+    rates = {"l2_bytes": l2, "microbenchmark": "SECTOR_READS_CU"}
+    for name, nbytes in (("half_l2", l2 // 2), ("l2", l2),
+                         ("four_l2", 4 * l2)):
+        sweep = {loads: sector_rate(lib, nbytes, loads)
+                 for loads in SECTOR_LOADS}
+        best = max(sweep, key=lambda k: sweep[k]["sectors_per_s"])
+        rate = sweep[best]["sectors_per_s"]
+        src = torch.zeros((nbytes // 4,), dtype=torch.int32, device="cuda")
+        idx = (torch.randint(0, nbytes // 32, (m,), generator=gen,
+                             device="cuda") * 8).to(torch.int32)
+        gather_ms = device_ms(lambda: G.gather_rows([src], idx))
+        library_ms = device_ms(lambda: src.index_select(0, idx))
+        rates[name] = {
+            "source_bytes": nbytes, "by_loads_in_flight": sweep,
+            "best_loads_in_flight": best, "sectors_per_s": rate,
+            "sector_bytes_per_s": 32 * rate,
+            "gather_reads": m, "gather_ms": gather_ms,
+            "gather_sectors_per_s": m / (gather_ms * 1e-3),
+            "index_select_ms": library_ms,
+            "index_select_sectors_per_s": m / (library_ms * 1e-3),
+            "gather_share_of_rate": m / (gather_ms * 1e-3) / rate}
+        del src, idx
+    say("random_sector_rate", **rates)
+    return rates
+
+
+def gather_times(sources, idx, copy_rate: float, sector_lib=None) -> dict:
+    """``gather_rows`` at one shape.  Bytes: the index once, each distinct
+    source row it names read once (what this index needs: a repeated row
+    comes from the caches), one output row written per index.  The
+    kernel beside the earlier design's body and launch pattern
+    (``_strided_gather_rows``) and ``index_select``, in turns by graph
+    replay; the host's cost of a call (``call_ms``) beside the earlier
+    pattern's; and the random-sector yardstick: one sector a word of a
+    distinct row, at the card's rate (``sector_rate``, 8 loads in flight)
+    from a source of the bytes one column group of the plan reads (all the
+    sources in one pass).  The yardstick is meant for a random index: a
+    local one shares its sectors."""
+    from presto1_tpu_torch.ops.kernels import _build, gather as G
+
+    sources = list(sources)
+    idx = idx.contiguous()
+    m, n = idx.shape[0], sources[0].shape[0]
     per_row = sum(s.element_size() * (s.numel() // max(s.shape[0], 1))
                   for s in sources)
-    nbytes = m * (idx.element_size() + 2 * per_row)
     long_idx = idx.to(torch.int64)
+    distinct = int(torch.unique(long_idx.clamp(0, n - 1)).numel())
+    nbytes = m * (idx.element_size() + per_row) + distinct * per_row
+    outs = [s.new_empty((m,) + tuple(s.shape[1:])) for s in sources]
+    units = [(1 << lw, k) for _, _, lw, k in G._units(sources, outs)]
+    plan = G.plan_gather(m, n, units, _build.sm_count(idx.device),
+                         _build.l2_bytes(idx.device))
 
     def library():
         return [s.index_select(0, long_idx) for s in sources]
 
-    out = {"rows_out": m, "rows_in": int(sources[0].shape[0]),
+    turns = in_turns({"ms": lambda: G.gather_rows(sources, idx),
+                      "strided_ms": lambda: _strided_gather_rows(sources,
+                                                                 idx),
+                      "library_ms": library})
+    out = {"rows_out": m, "rows_in": n, "distinct_rows_read": distinct,
            "sources": [f"{s.dtype}{list(s.shape[1:])}" for s in sources],
-           "index": str(idx.dtype),
-           "ms": device_ms(lambda: G.gather_rows(sources, idx)),
+           "index": str(idx.dtype), "units": len(units),
+           "plan": plan._asdict(), **turns,
+           "timed": "ms, strided_ms and library_ms in turns (in_turns)",
            "plain_ms": device_ms(lambda: G.gather_rows_plain(sources, idx)),
            "call_ms": time_ms(lambda: G.gather_rows(sources, idx)),
+           "strided_call_ms": time_ms(lambda: _strided_gather_rows(sources,
+                                                                   idx)),
            **_bounds(nbytes, m * len(sources), copy_rate),
-           "library_ms": device_ms(library),
            "library_call": "torch.index_select, once per source, on "
                            "indices already in range"}
     out["bytes_per_s"] = nbytes / (out["ms"] * 1e-3)
+    out["share_of_bound"] = out["bound_ms"] / out["ms"]
+    if sector_lib is not None:
+        group_bytes = (n * sum(w for w, _ in units) if plan.groups == 1
+                       else n * plan.per_group * max(w for w, _ in units))
+        rate = sector_rate(sector_lib, group_bytes, 8)
+        out["sector_rate"] = rate
+        out["sector_reads"] = distinct * len(units)
+        out["sector_yardstick_ms"] = \
+            distinct * len(units) / rate["sectors_per_s"] * 1e3
+        out["share_of_sector_yardstick"] = \
+            out["sector_yardstick_ms"] / out["ms"]
     return out
+
+
+def gather_small_call(gen) -> dict:
+    """The host's cost of a small ``gather_rows`` call, as fill Q27: 1,000
+    rows of 3 columns in 2 widths (int64, int64, int32), a random int64
+    index; ``call_ms`` of the wrapper beside the earlier pattern's
+    (``_strided_gather_rows``), and the device time of each."""
+    from presto1_tpu_torch.ops.kernels import gather as G
+
+    n = 1000
+    srcs = [_values((n,), dt, gen) for dt in (torch.int64, torch.int64,
+                                              torch.int32)]
+    idx = torch.randint(0, n, (n,), generator=gen, device="cuda")
+    return {"rows": n, "sources": ["int64", "int64", "int32"],
+            "call_ms": time_ms(lambda: G.gather_rows(srcs, idx)),
+            "strided_call_ms": time_ms(lambda: _strided_gather_rows(srcs, idx)),
+            "ms": device_ms(lambda: G.gather_rows(srcs, idx)),
+            "strided_ms": device_ms(lambda: _strided_gather_rows(srcs, idx))}
 
 
 def scatter_times(idx, x, size, mask, copy_rate: float) -> dict:
@@ -2004,19 +2423,20 @@ def dyncopy_times(columns, counts, capacity: int, copy_rate: float) -> dict:
             torch.cat(parts, dim=0, out=dst[:total])
             dst[total:].zero_()
 
+    turns = {"ms": lambda: DC.concat_rows(columns, counts, capacity),
+             "library_ms": library}
+    if total <= capacity:
+        turns["library_same_function_ms"] = library_same
     out = {"parts": k, "columns": len(columns), "capacity": capacity,
            "live_rows": sum(live), "read_bytes": read, "write_bytes": write,
-           "ms": device_ms(lambda: DC.concat_rows(columns, counts,
-                                                  capacity)),
+           "library_same_function_ms": None, **in_turns(turns),
+           "timed": "ms and the library calls in turns (in_turns)",
            "plain_ms": device_ms(lambda: DC.concat_rows_plain(
                columns, counts, capacity), reps=5),
            **_call_ms(lambda: DC.concat_rows(columns, counts, capacity)),
            **_bounds(nbytes, 0, copy_rate),
-           "library_ms": device_ms(library),
            "library_call": "torch.cat of the live prefixes, counts known "
                            "on the host, no zero tail",
-           "library_same_function_ms": device_ms(library_same)
-           if total <= capacity else None,
            "library_same_function_call": "torch.cat of the live prefixes "
                                          "into the output's first rows, then "
                                          "zero_() of the rest, counts known "
@@ -2034,7 +2454,7 @@ def main() -> int:
     from presto1_tpu_torch.tpcds.catalog import TpcdsCatalog
 
     device = phase_device()
-    phase_build()
+    sector_lib = phase_build()
     gen = torch.Generator(device="cuda")
     gen.manual_seed(20240607)
     err = phase_kernel_check(gen)
@@ -2043,6 +2463,7 @@ def main() -> int:
     scatter_err = phase_kernel_check_scatter(gen)
     dyncopy_err = phase_kernel_check_dyncopy(gen)
     copy_rate = phase_copy_bandwidth()
+    sector_rates = phase_random_sector_rate(gen, sector_lib)
     catalog = TpchCatalog(sf=1.0, device="cuda")
     q6 = phase_q6_engine(catalog)
     q1 = phase_q1_engine(catalog)
@@ -2084,11 +2505,15 @@ def main() -> int:
     dense_hist = dense_times(vals, 256, [], [], copy_rate,
                              library=lambda: torch.bincount(vals,
                                                             minlength=256))
-    gather_q15 = gather_times(*q15["gather_args"], copy_rate)
+    gather_q15, gather_q3, gather_q27, gather_q93 = (
+        gather_times(*p["gather_args"], copy_rate, sector_lib)
+        for p in (q15, q3, q27, q93))
     n = q6["cols"][0].shape[0]
     perm = torch.randperm(n, generator=gen, device="cuda")
-    gather_one = gather_times([q6["cols"][3]], perm, copy_rate)
-    gather_one32 = gather_times([q6["cols"][0]], perm.to(i32), copy_rate)
+    gather_one = gather_times([q6["cols"][3]], perm, copy_rate, sector_lib)
+    gather_one32 = gather_times([q6["cols"][0]], perm.to(i32), copy_rate,
+                                sector_lib)
+    gather_small = gather_small_call(gen)
     scatter_q3 = scatter_times(*q3["scatter_args"], copy_rate)
     scatter_perm = scatter_times(perm, q6["cols"][3], n, None, copy_rate)
     mask = scatter_err.pop("mask")
@@ -2176,8 +2601,12 @@ def main() -> int:
               shape="the Q15 view's largest gather at SF1: every operand of "
                     "the grouping sort through the row permutation",
               at_engine_shape=gather_q15,
+              at_q27_largest_call=gather_q27, at_q93_largest_call=gather_q93,
+              at_q3_largest_call=gather_q3,
               at_one_int64_column_6m_permutation=gather_one,
-              at_one_int32_column_int32_index=gather_one32),
+              at_one_int32_column_int32_index=gather_one32,
+              at_1000_rows_3_columns_2_widths=gather_small,
+              random_sector_rate=sector_rates),
     ]
     kernels.append(entry(
         "dyncopy",
@@ -2209,6 +2638,17 @@ def main() -> int:
         q1_ms_per_run=q1["ms_per_run"], q15view_ms_per_run=q15["ms_per_run"],
         q1_dense_kernel_ms=dense_q1["ms"],
         q15view_largest_gather_ms=gather_q15["ms"],
+        largest_gather_ms={k: {"ms": g["ms"],
+                               "strided_ms": g["strided_ms"],
+                               "index_select_ms": g["library_ms"],
+                               "bound_ms": g["bound_ms"]}
+                           for k, g in (("q15_view", gather_q15),
+                                        ("q3", gather_q3),
+                                        ("q27", gather_q27),
+                                        ("q93", gather_q93))},
+        launches_by_path={k: p["launches"] for k, p in (
+            ("q1", q1), ("q15_view", q15), ("q3", q3), ("q27", q27),
+            ("q93", q93))},
         q15view_largest_compaction_ms=compact_q15["ms"],
         q3_largest_scatter_ms=scatter_q3["ms"],
         device_ms_per_run={k: p["profile"].get("device_ms_per_run")

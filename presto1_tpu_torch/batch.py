@@ -61,8 +61,8 @@ def torch_dtype(t: SqlType) -> torch.dtype:
 
 def _gather(sources, indices: torch.Tensor):
     """Every tensor of ``sources`` at ``indices`` along axis 0, clamped,
-    through the gather kernel (``ops/kernels/gather.py``): one launch per
-    element width on a CUDA device."""
+    through the gather kernel (``ops/kernels/gather.py``): one launch for
+    all of them on a CUDA device."""
     # imported here: the ops package imports this module
     from .ops.kernels.gather import gather_rows
 
@@ -327,8 +327,7 @@ def gather_columns(cols: Dict[str, Column], indices: torch.Tensor,
                    valid: Optional[torch.Tensor] = None) -> Dict[str, Column]:
     """Gather many columns at the same (clamped) indices: data, validity
     and nested parts of every column go through the gather kernel together,
-    one launch per element width; rows where ``valid`` is False become
-    NULL."""
+    in one launch; rows where ``valid`` is False become NULL."""
     slots = [(name, part) for name, c in cols.items() for part in _PARTS
              if getattr(c, part) is not None]
     moved = dict(zip(slots, _gather(
@@ -357,8 +356,8 @@ def concat_batches(a: "RecordBatch", b: "RecordBatch",
                    capacity: int) -> "RecordBatch":
     """Concatenate two batches with identical column sets: the rows of
     ``b`` follow the live rows of ``a``.  Every part of every column moves
-    in the dynamic-copy kernel (``ops/kernels/dyncopy.py``; one launch per
-    row width), with both row counts on the device.  Nested ``[n, W]``
+    in the dynamic-copy kernel (``ops/kernels/dyncopy.py``; one launch),
+    with both row counts on the device.  Nested ``[n, W]``
     parts of different widths are padded with zeros to the wider; a
     validity mask only one side carries counts as all-valid on the other.
     Rows past the total are zeros (the JAX package repeats ``b``'s last

@@ -188,8 +188,8 @@ def sort_multi(operands: Sequence[torch.Tensor], num_keys: int
     (the semantics of ``jax.lax.sort`` with ``num_keys``).
 
     ``sort_permutation`` of the keys, then every operand moves through the
-    permutation in ONE call of the gather kernel (one launch per element
-    width).  The sort is always stable: a later pass must keep the order of
+    permutation in ONE launch of the gather kernel, whatever their element
+    widths.  The sort is always stable: a later pass must keep the order of
     the earlier ones, so ties keep their row order."""
     operands = list(operands)
     if not 1 <= num_keys <= len(operands):

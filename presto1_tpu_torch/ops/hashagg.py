@@ -310,8 +310,9 @@ def _finalize_aggs(plans, sums, fsums, starts, ends, order, key_words,
         cnt = base_cnt
         if c.validity is not None:
             # need the count column: recompute via value-sort validity
+            # gather the bool, then widen: an eighth of the bytes
             cnt = sorted_segment_sum(
-                take_clamped(c.validity.to(torch.int64), order),
+                take_clamped(c.validity, order).to(torch.int64),
                 starts, ends)
         nonempty = cnt > 0
         v = minmax_by_value_sort(key_words, c.data, starts, ends,

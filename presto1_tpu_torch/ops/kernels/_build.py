@@ -9,8 +9,11 @@ the first use raises with the compiler's output.
 
 ``build_all()`` starts one ``nvcc`` per source at once, for callers that want
 every kernel ready before they begin.  ``sm_count(device)`` is the device's
-number of streaming multiprocessors, looked up once per device: the wrappers
-size their grids by it on every call.
+number of streaming multiprocessors and ``l2_bytes(device)`` its L2 cache
+size, each looked up once per device: the wrappers size their grids by them
+on every call.  ``launch_on(device, launch)`` calls ``launch(stream)`` with
+the raw handle of the device's current stream, and makes the device current
+for the call only where it is not already.
 """
 
 from __future__ import annotations
@@ -35,6 +38,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _SMS: Dict[int, int] = {}
+_L2: Dict[int, int] = {}
 # name -> {"seconds": wall time of the nvcc run (0.0 if the library was
 # already there), "log": what nvcc printed (registers, spills), "path": .so}
 BUILD_INFO: Dict[str, dict] = {}
@@ -126,3 +130,29 @@ def sm_count(device: torch.device) -> int:
         sms = _SMS[index] = \
             torch.cuda.get_device_properties(index).multi_processor_count
     return sms
+
+
+def l2_bytes(device: torch.device) -> int:
+    """Bytes of a CUDA device's L2 cache (cached per device)."""
+    index = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    size = _L2.get(index)
+    if size is None:
+        size = _L2[index] = \
+            torch.cuda.get_device_properties(index).L2_cache_size
+    return size
+
+
+def launch_on(device: torch.device, launch):
+    """``launch(stream)`` with the raw handle of ``device``'s current stream
+    (an int: what ``torch.cuda.current_stream(index).cuda_stream`` gives,
+    without making a ``Stream`` object), with ``device`` the current device
+    during the call: entered only where it is not already, since entering
+    costs more host time than a short kernel takes."""
+    current = torch.cuda.current_device()
+    index = current if device.index is None else device.index
+    stream = torch._C._cuda_getCurrentRawStream(index)
+    if index == current:
+        return launch(stream)
+    with torch.cuda.device(index):
+        return launch(stream)

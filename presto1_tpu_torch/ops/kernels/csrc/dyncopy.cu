@@ -17,24 +17,30 @@
 //
 // with the counts on the device: no part length ever reaches the host.
 //
-// A launch takes a table of up to 32 (source, capacity) pairs of one output
-// row width in bytes: `cols` output columns times `k` parts, entry c * k + p.
-// A source row may be narrower than the output row (nested [n, W] columns of
-// different widths): its tail is written as zeros.  A null source stands for
-// rows whose every byte is `fill` (a validity mask that a part does not
-// carry, i.e. all rows valid).  Columns and their validity masks are separate
-// entries; the engine makes one launch per row width.
+// ONE launch moves every column of a call, whatever its element width,
+// nesting or validity: one __grid_constant__ parameter struct (`Params`)
+// holds a descriptor per column (destination, row bytes, its first tile, its
+// first pair) and a (source, source row bytes) pair per column and part.  A
+// null source stands for rows whose every byte is `fill` (a validity mask
+// that a part does not carry, i.e. all rows valid); a source row narrower
+// than the column's (nested [n, W] parts of different widths) is padded
+// with zeros.
 //
-// Body: each block loads the k counts, clamps them and forms the exclusive
-// prefix in shared memory, then walks its output words under a grid-stride
-// loop: find the part of the word's row (a scan over at most 32 offsets in
-// shared memory), copy the word of every column.  Words are 1, 2, 4, 8 or 16
-// bytes, the widest that divides every row width and every address of the
-// launch.
+// The kernel moves bytes.  Column c's output is capacity * row_bytes bytes,
+// cut into tiles of kTileWords aligned 16-byte words; a block takes a tile,
+// and finds the part of the tile's first byte once, in the shared-memory
+// prefix of the clamped counts.  A word inside one part whose source rows
+// are as wide as the column's is one or two aligned 16-byte loads of the
+// source, shifted into place with `__funnelshift_r` where the part's byte
+// offset is not a multiple of 16; a word past the live bytes is a store of
+// zeros, a word of a `fill` part a store of the fill pattern.  Only words
+// that straddle two parts or the end of the live bytes, and parts of
+// narrower rows, go byte by byte.  A bool mask thus moves 16 bytes a lane,
+// and so does every other width.
 //
-// Bound: memory.  The live bytes are read once and `capacity` rows are
-// written once, both coalesced; nothing is staged (cp.async / TMA staging is
-// left for a later change).
+// Bound: memory.  The live bytes are read once and `capacity` rows of every
+// column are written once; a thread keeps kWords words (two loads each where
+// shifted) in flight before it stores.
 //
 // Plain C interface for ctypes; launches on the caller's stream, does not
 // synchronise, allocates nothing.
@@ -45,129 +51,229 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kMaxPairs = 32;
+constexpr int kWords = 8;                      // words a thread moves a tile
+constexpr int kTileWords = kThreads * kWords;  // 32 KiB of one column
+constexpr int kMaxParts = 32;
+constexpr int kMaxCols = 48;
+constexpr int kMaxPairs = 128;
 
-struct Table {
-  const void* src[kMaxPairs];    // entry c * k + p; nullptr: rows of `fill`
-  int64_t src_words[kMaxPairs];  // words in a row of that source
-  void* dst[kMaxPairs];          // one per column
-  int64_t cap[kMaxPairs];        // rows of part p
-  int k;
-  int cols;
+struct Pair {
+  const void* src;    // the part's rows; nullptr: rows of `fill` bytes
+  int64_t row_bytes;  // bytes of one of its rows (<= the column's)
 };
 
-template <typename T, bool kFlat>
-__global__ void __launch_bounds__(kThreads)
-dyncopy_kernel(const Table tab, const int64_t* __restrict__ counts,
-               int64_t capacity, int64_t words, const T fill) {
-  __shared__ int64_t off[kMaxPairs + 1];
-  if (threadIdx.x == 0) {
-    int64_t run = 0;
-    for (int p = 0; p < tab.k; ++p) {
-      off[p] = run;
-      int64_t c = counts[p];
-      c = c < 0 ? 0 : (c > tab.cap[p] ? tab.cap[p] : c);
-      run += c;
+struct Col {
+  void* dst;          // capacity rows of row_bytes, 16-byte aligned
+  int64_t row_bytes;
+  int64_t tile0;      // tiles of the columns before this one
+  int32_t pair0;      // the pair of part 0; part p's is pair0 + p
+  int32_t unused;
+};
+
+struct Params {
+  const int64_t* counts;  // device int64[k]
+  int64_t capacity;       // output rows
+  int64_t tiles;          // tiles of every column
+  int32_t k;              // parts
+  int32_t cols;
+  int32_t fill;           // the byte a null source's rows hold
+  int32_t unused;
+  int64_t cap[kMaxParts];  // rows of each part
+  Col col[kMaxCols];
+  Pair pair[kMaxPairs];
+};
+
+enum Kind { kSkip, kZero, kFill, kCopy, kBytes };
+
+// bytes delta .. delta + 15 of the 32 bytes a:b (0 <= delta < 16)
+__device__ __forceinline__ uint4 funnel16(uint4 a, uint4 b, int delta) {
+  const uint32_t l[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
+  const int q = delta >> 2;
+  const uint32_t s = (delta & 3) * 8;
+  uint32_t h[6], m[5];
+#pragma unroll
+  for (int i = 0; i < 6; ++i) h[i] = (q & 2) ? l[i + 2] : l[i];
+#pragma unroll
+  for (int i = 0; i < 5; ++i) m[i] = (q & 1) ? h[i + 1] : h[i];
+  return make_uint4(__funnelshift_r(m[0], m[1], s),
+                    __funnelshift_r(m[1], m[2], s),
+                    __funnelshift_r(m[2], m[3], s),
+                    __funnelshift_r(m[3], m[4], s));
+}
+
+// the 16 bytes of output bytes lo .. lo + 15, one at a time, from part p on
+__device__ uint4 bytes_word(const Params& P, const Col& col,
+                            const int64_t* off, int p, int64_t lo,
+                            int64_t live_bytes) {
+  const int64_t rb = col.row_bytes;
+  uint32_t lane[4] = {0, 0, 0, 0};
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    const int64_t b = lo + j;
+    if (b >= live_bytes) break;
+    while (p + 1 < P.k && off[p + 1] * rb <= b) ++p;
+    const Pair& pr = P.pair[col.pair0 + p];
+    const int64_t local = b - off[p] * rb;
+    const unsigned char* s = static_cast<const unsigned char*>(pr.src);
+    uint32_t x = 0;
+    if (s == nullptr) {
+      x = static_cast<uint32_t>(P.fill) & 0xffu;
+    } else if (pr.row_bytes == rb) {
+      x = __ldg(s + local);
+    } else {
+      const int64_t r = local / rb;
+      const int64_t cb = local - r * rb;
+      if (cb < pr.row_bytes) x = __ldg(s + r * pr.row_bytes + cb);
     }
-    off[tab.k] = run;
+    lane[j >> 2] |= x << (8 * (j & 3));
   }
-  __syncthreads();
-  const int64_t live_rows = off[tab.k];
-  const int64_t total = capacity * words;
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
-  for (int64_t e = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-       e < total; e += stride) {
-    int64_t r = e, j = 0;
-    if (!kFlat) {
-      r = e / words;
-      j = e - r * words;
-    }
-    if (r >= live_rows) {
-      for (int c = 0; c < tab.cols; ++c) static_cast<T*>(tab.dst[c])[e] = T{};
+  return make_uint4(lane[0], lane[1], lane[2], lane[3]);
+}
+
+// the clamped counts' exclusive prefix: off[p] the first output row of part
+// p, off[k] the live rows
+__device__ __forceinline__ void prefix(const Params& P, int64_t* off) {
+  int64_t run = 0;
+  for (int p = 0; p < P.k; ++p) {
+    off[p] = run;
+    int64_t c = P.counts[p];
+    c = c < 0 ? 0 : (c > P.cap[p] ? P.cap[p] : c);
+    run += c;
+  }
+  off[P.k] = run;
+}
+
+// the column of tile t: the last whose first tile is at or before t
+__device__ __forceinline__ int column_of(const Params& P, int64_t t) {
+  int c = 0;
+  while (c + 1 < P.cols && P.col[c + 1].tile0 <= t) ++c;
+  return c;
+}
+
+// tile t: every load of the thread's words before any store
+__device__ __forceinline__ void copy_tile(const Params& P, const int64_t* off,
+                                          int64_t live_rows, uint4 fill,
+                                          int64_t t) {
+  const int k = P.k;
+  const Col& col = P.col[column_of(P, t)];
+  const int64_t rb = col.row_bytes;
+  const int64_t out_bytes = P.capacity * rb;
+  const int64_t live_bytes = live_rows * rb;
+  const int64_t w0 = (t - col.tile0) * kTileWords;
+  // the part of the tile's first byte, found once for the tile
+  int p0 = 0;
+  while (p0 + 1 < k && off[p0 + 1] * rb <= w0 * 16) ++p0;
+  char* dst = static_cast<char*>(col.dst);
+  uint4 a[kWords], b[kWords];
+  int kind[kWords], delta[kWords];
+  int p = p0;
+#pragma unroll
+  for (int v = 0; v < kWords; ++v) {
+    const int64_t lo = (w0 + v * kThreads + threadIdx.x) * 16;
+    kind[v] = kSkip;
+    delta[v] = 0;
+    if (lo >= out_bytes) continue;
+    if (lo >= live_bytes) {
+      kind[v] = kZero;
       continue;
     }
-    int p = 0;
-    while (p + 1 < tab.k && off[p + 1] <= r) ++p;
-    const int64_t local = r - off[p];
-    for (int c = 0; c < tab.cols; ++c) {
-      const int i = c * tab.k + p;
-      const T* s = static_cast<const T*>(tab.src[i]);
-      const int64_t sw = tab.src_words[i];
-      T v{};
-      if (s == nullptr)
-        v = fill;
-      else if (kFlat || j < sw)
-        v = s[local * sw + j];
-      static_cast<T*>(tab.dst[c])[e] = v;
+    while (p + 1 < k && off[p + 1] * rb <= lo) ++p;
+    const int64_t start = off[p] * rb;
+    const int64_t end = off[p + 1] * rb < live_bytes ? off[p + 1] * rb
+                                                     : live_bytes;
+    const Pair& pr = P.pair[col.pair0 + p];
+    if (lo + 16 > end || lo + 16 > out_bytes ||
+        (pr.src != nullptr && pr.row_bytes != rb)) {
+      kind[v] = kBytes;
+      continue;
+    }
+    if (pr.src == nullptr) {
+      kind[v] = kFill;
+      continue;
+    }
+    const char* s = static_cast<const char*>(pr.src) + (lo - start);
+    const int d = static_cast<int>(reinterpret_cast<uintptr_t>(s) & 15);
+    const uint4* q = reinterpret_cast<const uint4*>(s - d);
+    a[v] = __ldg(q);
+    if (d) b[v] = __ldg(q + 1);
+    kind[v] = kCopy;
+    delta[v] = d;
+  }
+#pragma unroll
+  for (int v = 0; v < kWords; ++v) {
+    const int64_t lo = (w0 + v * kThreads + threadIdx.x) * 16;
+    uint4 word;
+    switch (kind[v]) {
+      case kSkip: continue;
+      case kZero: word = make_uint4(0, 0, 0, 0); break;
+      case kFill: word = fill; break;
+      case kCopy: word = delta[v] ? funnel16(a[v], b[v], delta[v]) : a[v];
+                  break;
+      default: word = bytes_word(P, col, off, p0, lo, live_bytes); break;
+    }
+    if (lo + 16 <= out_bytes) {
+      *reinterpret_cast<uint4*>(dst + lo) = word;
+    } else {  // the column's last, partial word
+      const uint32_t lane[4] = {word.x, word.y, word.z, word.w};
+      for (int j = 0; lo + j < out_bytes; ++j)
+        dst[lo + j] = static_cast<char>((lane[j >> 2] >> (8 * (j & 3))) &
+                                        0xffu);
     }
   }
 }
 
-template <typename T>
-int launch(const Table& tab, const int64_t* counts, int64_t capacity,
-           int64_t words, const T fill, int blocks, cudaStream_t stream) {
-  bool flat = words == 1;
-  for (int i = 0; i < tab.k * tab.cols; ++i)
-    flat = flat && (tab.src[i] == nullptr || tab.src_words[i] == 1);
-  if (flat)
-    dyncopy_kernel<T, true><<<blocks, kThreads, 0, stream>>>(
-        tab, counts, capacity, words, fill);
-  else
-    dyncopy_kernel<T, false><<<blocks, kThreads, 0, stream>>>(
-        tab, counts, capacity, words, fill);
-  return static_cast<int>(cudaGetLastError());
+__global__ void __launch_bounds__(kThreads)
+dyncopy_kernel(const __grid_constant__ Params P) {
+  __shared__ int64_t off[kMaxParts + 1];
+  if (threadIdx.x == 0) prefix(P, off);
+  __syncthreads();
+  const int64_t live_rows = off[P.k] < P.capacity ? off[P.k] : P.capacity;
+  const uint32_t f = (static_cast<uint32_t>(P.fill) & 0xffu) * 0x01010101u;
+  const uint4 fill = make_uint4(f, f, f, f);
+  for (int64_t t = blockIdx.x; t < P.tiles; t += gridDim.x)
+    copy_tile(P, off, live_rows, fill, t);
 }
 
 }  // namespace
 
-extern "C" int p1_dyncopy_threads() { return kThreads; }
-extern "C" int p1_dyncopy_max_pairs() { return kMaxPairs; }
+// The layout and geometry this library was built with, for the wrapper to
+// check against its own before any launch: {kThreads, kWords, kMaxParts,
+// kMaxCols, kMaxPairs, sizeof(Pair), sizeof(Col), sizeof(Params)}.
+extern "C" void p1_dyncopy_geometry(int64_t* out) {
+  out[0] = kThreads;
+  out[1] = kWords;
+  out[2] = kMaxParts;
+  out[3] = kMaxCols;
+  out[4] = kMaxPairs;
+  out[5] = sizeof(Pair);
+  out[6] = sizeof(Col);
+  out[7] = sizeof(Params);
+}
 
-// srcs / src_words: k * cols entries (host arrays), entry c * k + p, each a
-// device pointer (or null for rows of `fill`) and its row length in words of
-// word_bytes (1, 2, 4, 8 or 16).  caps: k part capacities in rows.  dsts:
-// cols device pointers of capacity * words words each.  counts: a device
-// int64[k].  Returns cudaGetLastError() after the launch, or a negative
-// code for an argument the kernel does not take.
-extern "C" int p1_dyncopy(const void* const* srcs, const int64_t* src_words,
-                          const int64_t* caps, int k, int cols,
-                          void* const* dsts, const void* counts,
-                          int64_t capacity, int64_t words, int word_bytes,
-                          int fill, int blocks, void* stream) {
-  if (k < 1 || cols < 1 || k * cols > kMaxPairs) return -2;
-  if (capacity < 1 || words < 1 || blocks < 1) return -3;
-  Table tab = {};
-  tab.k = k;
-  tab.cols = cols;
-  for (int i = 0; i < k * cols; ++i) {
-    if (src_words[i] < 0 || src_words[i] > words) return -4;
-    tab.src[i] = srcs[i];
-    tab.src_words[i] = src_words[i];
+// `p` describes the call (see Params; the columns' tile0 the running sum of
+// their tiles, p->tiles the total), `blocks` the grid (a grid-stride loop
+// over the tiles).  Returns cudaGetLastError() after the launch, or a
+// negative code for an argument the kernel does not take.
+extern "C" int p1_dyncopy(const void* params, int blocks, void* stream) {
+  const Params* p = static_cast<const Params*>(params);
+  if (p->k < 1 || p->k > kMaxParts || p->cols < 1 || p->cols > kMaxCols)
+    return -2;
+  if (p->capacity < 1 || p->tiles < 1 || blocks < 1) return -3;
+  int64_t tiles = 0;
+  for (int c = 0; c < p->cols; ++c) {
+    const Col& col = p->col[c];
+    if (col.row_bytes < 1 || col.tile0 != tiles || col.pair0 < 0 ||
+        col.pair0 + p->k > kMaxPairs ||
+        reinterpret_cast<uintptr_t>(col.dst) % 16 != 0)
+      return -4;
+    for (int q = col.pair0; q < col.pair0 + p->k; ++q)
+      if (p->pair[q].row_bytes < 0 || p->pair[q].row_bytes > col.row_bytes)
+        return -4;
+    const int64_t words = (p->capacity * col.row_bytes + 15) / 16;
+    tiles += (words + kTileWords - 1) / kTileWords;
   }
-  for (int p = 0; p < k; ++p) tab.cap[p] = caps[p] < 0 ? 0 : caps[p];
-  for (int c = 0; c < cols; ++c) tab.dst[c] = dsts[c];
-  const int64_t* cnt = static_cast<const int64_t*>(counts);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const uint32_t b = static_cast<uint32_t>(fill) & 0xffu;
-  const uint32_t b4 = b * 0x01010101u;
-  switch (word_bytes) {
-    case 1:
-      return launch<uint8_t>(tab, cnt, capacity, words,
-                             static_cast<uint8_t>(b), blocks, s);
-    case 2:
-      return launch<uint16_t>(tab, cnt, capacity, words,
-                              static_cast<uint16_t>(b * 0x0101u), blocks, s);
-    case 4:
-      return launch<uint32_t>(tab, cnt, capacity, words, b4, blocks, s);
-    case 8:
-      return launch<uint64_t>(
-          tab, cnt, capacity, words,
-          (static_cast<uint64_t>(b4) << 32) | static_cast<uint64_t>(b4),
-          blocks, s);
-    case 16:
-      return launch<uint4>(tab, cnt, capacity, words,
-                           make_uint4(b4, b4, b4, b4), blocks, s);
-    default:
-      return -1;
-  }
+  if (tiles != p->tiles) return -4;
+  dyncopy_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      *p);
+  return static_cast<int>(cudaGetLastError());
 }

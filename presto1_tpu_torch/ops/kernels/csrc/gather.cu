@@ -8,28 +8,59 @@
 // move of the engine: rows after a sort, representatives of groups, the
 // survivors of a compaction.
 //
-// One body serves all four.  For an output element (i, j) of a [rows, width]
-// result:
+// Two bodies.
+//
+// `gather_rows_kernel` moves every column of a call through one index in
+// ONE launch, whatever the element widths.  The wrapper describes each
+// column as word columns ("units"): a 1-D column is one unit of its element
+// width, an [n, W] matrix is one unit per word of its row, each with the row
+// stride in words.  The units travel in one __grid_constant__ parameter
+// struct (`Params`, at most kMaxUnits; the wrapper splits a call beyond it).
+// For output rows i and units u:
+//
+//   g         = clamp(idx[i], 0, n - 1)
+//   u.dst[i * u.stride] = u.src[g * u.stride]          (words of 2^u.lw bytes)
+//
+// A thread takes R output rows of a tile, warp-interleaved (lane l of a warp
+// the rows 32 r + l of the warp's 32 R), so that each load and store
+// instruction of a warp covers 32 consecutive rows: it reads its R indices
+// as streaming loads and clamps them, then issues the source loads of up to
+// kLoads / R units before it stores anything (read-only loads through
+// `__restrict__` locals, so the compiler keeps them all in flight), and
+// writes them with streaming stores.  R = kRows = 4 at every element width
+// (8 and 16 measured slower at every width timed).  Offsets are 32-bit
+// where every byte offset of the call fits (`Off`).  (R consecutive rows a
+// thread, each unit's R words one vector store, measured slower at every
+// shape timed: on a sequential index a warp's load then spans 32 sectors
+// for 8 bytes each.)
+//
+// What bounds it on this card: a random index makes every source word a
+// 32-byte sector read, so a random gather is bound by the rate at which
+// the card serves random sectors (a microbenchmark of sector reads alone
+// reaches it with one load in flight a thread at full occupancy), not by
+// the stream rate.  L2 residency decides that rate:
+// the index and the output are streams (read and written with evict-first
+// hints), the sources are read with an evict-last policy where the sources
+// of a group fit the L2 budget, so that they are read from device memory
+// about once.  When the sources of one call exceed the L2 budget the
+// wrapper puts groups of units on blockIdx.y: the blocks of one group run
+// together while its sources stay resident.  Only scattered tiles need
+// that: a tile whose indices stay local reads its sources as streams, and
+// is moved whole by one group, the groups taking such tiles in turn, so a
+// sequential index costs one pass.
+//
+// `gather_strided_kernel` is the strided body of the earlier design, kept
+// for take_along_axis (an index per output element, not per row):
 //
 //   g      = clamp(idx[i * irs + j * ics], 0, n - 1)
 //   out[e] = src[g * sgs + i * sis + j * sjs]        e = i * width + j
 //
-//   columns  (1-D, width 1):      irs 1, ics 0, sgs 1,     sis 0,  sjs 0
-//   rows of [n, W]:               irs 1, ics 0, sgs W,     sis 0,  sjs 1
 //   take_along_axis, axis 0:      irs W, ics 1, sgs W_src, sis 0,  sjs 1
 //   take_along_axis, axis 1:      irs W, ics 1, sgs 1,     sis W_src, sjs 0
 //
-// and a table of up to 32 (source, destination) pairs of one element width
-// shares the index: a batch's columns move in one launch per width, the index
-// read once per row.  Clamping is in the kernel (`jnp.take(mode="clip")`;
-// CUDA indexing does not clamp).
-//
-// Bound: memory.  idx is read once and the output written once, coalesced;
-// the source reads land wherever idx says, so a random permutation pays a
-// 32-byte sector for each 1 / 4 / 8-byte element.  Nothing here is staged in
-// shared memory: the TPU kernels held the table in fast memory because their
-// device memory has no fine-grained reads, the card's L2 does that job.
-// Elements move as 1-, 2-, 4- or 8-byte words, whatever type they hold.
+// (columns: irs 1, ics 0, sgs 1, sis 0, sjs 0; rows of [n, W]: irs 1, ics 0,
+// sgs W, sis 0, sjs 1), a table of up to 32 (source, destination) pairs of
+// one element width sharing the index.
 //
 // Plain C interface for ctypes; launches on the caller's stream, does not
 // synchronise, allocates nothing.
@@ -40,7 +71,222 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kMaxPairs = 32;
+constexpr int kMaxUnits = 64;  // units one launch of the row body takes
+constexpr int kLoads = 16;     // source words a thread keeps in flight
+constexpr int kRows = 4;       // output rows a thread takes (R)
+constexpr int kMaxPairs = 32;  // pairs of one launch of the strided body
+
+// ------------------------------------------------------------ the row body
+
+struct Unit {
+  const void* src;  // word 0 of row 0
+  void* dst;
+  int32_t lw;       // log2 of the word's bytes: 0..3
+  int32_t stride;   // words from one row to the next (1: a 1-D column)
+};
+
+struct Params {
+  const void* idx;    // int32 or int64 [rows]
+  int64_t rows;       // output rows
+  int64_t n;          // source rows, >= 1
+  int32_t count;      // units
+  int32_t per_group;  // units a blockIdx.y group takes
+  int32_t keep;       // a group's sources fit the L2 budget: evict-last
+  int32_t unused;
+  Unit unit[kMaxUnits];
+};
+
+// the L2 policy of the source loads: evict-last where a group's sources
+// fit the budget (they stay resident while the group's blocks run), else
+// evict-normal (marking more than the L2 holds evict-last measured slower
+// than no hint)
+__device__ __forceinline__ uint64_t source_policy(bool keep) {
+  uint64_t policy;
+  if (keep)
+    asm("createpolicy.fractional.L2::evict_last.b64 %0, 1.0;"
+        : "=l"(policy));
+  else
+    asm("createpolicy.fractional.L2::evict_normal.b64 %0, 1.0;"
+        : "=l"(policy));
+  return policy;
+}
+
+// one read-only source word, loaded under the L2 policy `pol`
+template <int LW>
+__device__ __forceinline__ uint64_t load_word(const char* p, uint64_t pol) {
+  if constexpr (LW == 0) {
+    uint32_t v;
+    asm("ld.global.nc.L2::cache_hint.u8 %0, [%1], %2;"
+        : "=r"(v) : "l"(p), "l"(pol));
+    return v;
+  } else if constexpr (LW == 1) {
+    uint32_t v;
+    asm("ld.global.nc.L2::cache_hint.u16 %0, [%1], %2;"
+        : "=r"(v) : "l"(p), "l"(pol));
+    return v;
+  } else if constexpr (LW == 2) {
+    uint32_t v;
+    asm("ld.global.nc.L2::cache_hint.u32 %0, [%1], %2;"
+        : "=r"(v) : "l"(p), "l"(pol));
+    return v;
+  } else {
+    uint64_t v;
+    asm("ld.global.nc.L2::cache_hint.u64 %0, [%1], %2;"
+        : "=l"(v) : "l"(p), "l"(pol));
+    return v;
+  }
+}
+
+template <int LW, typename Off>
+__device__ __forceinline__ void load_unit(const Unit& u,
+                                          const Off (&g)[kRows], uint64_t pol,
+                                          uint64_t (&v)[kRows]) {
+  const char* __restrict__ src = static_cast<const char*>(u.src);
+  const Off stride = static_cast<Off>(u.stride);
+#pragma unroll
+  for (int r = 0; r < kRows; ++r)
+    v[r] = load_word<LW>(src + ((g[r] * stride) << LW), pol);
+}
+
+template <int LW>
+__device__ __forceinline__ void store_word(char* d, uint64_t v) {
+  if constexpr (LW == 0)
+    __stcs(reinterpret_cast<unsigned char*>(d), static_cast<unsigned char>(v));
+  else if constexpr (LW == 1)
+    __stcs(reinterpret_cast<unsigned short*>(d),
+           static_cast<unsigned short>(v));
+  else if constexpr (LW == 2)
+    __stcs(reinterpret_cast<unsigned int*>(d), static_cast<unsigned int>(v));
+  else
+    __stcs(reinterpret_cast<unsigned long long*>(d),
+           static_cast<unsigned long long>(v));
+}
+
+// a unit's words of the thread's rows (row0 + 32 r, those below `rows`)
+template <int LW>
+__device__ __forceinline__ void store_unit(const Unit& u, int64_t row0,
+                                           int64_t rows,
+                                           const uint64_t (&v)[kRows]) {
+  char* __restrict__ dst = static_cast<char*>(u.dst);
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    const int64_t row = row0 + 32 * r;
+    if (row < rows) store_word<LW>(dst + ((row * u.stride) << LW), v[r]);
+  }
+}
+
+__device__ __forceinline__ int32_t load_index(const int32_t* p) {
+  return __ldcs(reinterpret_cast<const int*>(p));
+}
+
+__device__ __forceinline__ int64_t load_index(const int64_t* p) {
+  return __ldcs(reinterpret_cast<const long long*>(p));
+}
+
+// whether a tile's indices stay local: its first and last within a few
+// tiles' rows of each other (a sequential run, a compaction), so that its
+// sources are read as streams
+template <typename I>
+__device__ __forceinline__ bool local_tile(const I* idx, int64_t tile,
+                                           int64_t rows) {
+  constexpr int64_t kTileRows = static_cast<int64_t>(kThreads) * kRows;
+  const int64_t b0 = tile * kTileRows;
+  const int64_t end = (b0 + kTileRows < rows ? b0 + kTileRows : rows) - 1;
+  const int64_t a = load_index(idx + b0), z = load_index(idx + end);
+  return (z > a ? z - a : a - z) <= 4 * kTileRows;
+}
+
+// A block takes tiles of kThreads * R output rows, grid-stride; warp w of a
+// tile takes its rows [w * 32 R, (w + 1) * 32 R), and lane l of it the
+// rows 32 r + l, so that each load and store instruction of a warp covers
+// 32 consecutive rows.  With groups (gridDim.y > 1) a block first finds,
+// one thread a tile, which of its next kThreads tiles are local: a local
+// tile is moved whole (every unit) by one group, the groups taking such
+// tiles in turn; a scattered tile is moved by every group, each its own
+// units, so that the sources of one group stay in L2 while its blocks run.
+template <typename I, typename Off>
+__global__ void __launch_bounds__(kThreads)
+gather_rows_kernel(const __grid_constant__ Params p) {
+  // units whose loads fly together
+  constexpr int kChunk = kLoads / kRows;
+  constexpr int64_t kTileRows = static_cast<int64_t>(kThreads) * kRows;
+  __shared__ bool local[kThreads];
+  const uint64_t pol = source_policy(p.keep != 0);
+  const I* __restrict__ idx = static_cast<const I*>(p.idx);
+  const int64_t imax = sizeof(I) == 4 ? INT32_MAX : INT64_MAX;
+  const I hi = static_cast<I>(p.n - 1 < imax ? p.n - 1 : imax);
+  const int groups = static_cast<int>(gridDim.y);
+  const int group = static_cast<int>(blockIdx.y);
+  const int first = group * p.per_group;
+  const int last = min(p.count, first + p.per_group);
+  const int64_t tiles = (p.rows + kTileRows - 1) / kTileRows;
+  const int64_t step = gridDim.x;
+  for (int64_t t0 = blockIdx.x; t0 < tiles; t0 += step * kThreads) {
+    if (groups > 1) {
+      const int64_t t = t0 + threadIdx.x * step;
+      local[threadIdx.x] = t < tiles && local_tile<I>(idx, t, p.rows);
+      __syncthreads();
+    }
+    for (int j = 0; j < kThreads; ++j) {
+      const int64_t t = t0 + j * step;
+      if (t >= tiles) break;
+      int u_first = first, u_last = last;
+      if (groups > 1 && local[j]) {
+        u_first = 0;
+        u_last = t % groups == group ? p.count : 0;
+      }
+      if (u_first >= u_last) continue;
+      const int64_t row0 = t * kTileRows + (threadIdx.x / 32) * 32 * kRows +
+                           threadIdx.x % 32;
+      if (row0 >= p.rows) continue;
+      Off g[kRows];
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) {
+        const int64_t row = row0 + 32 * r;
+        const I x = row < p.rows ? load_index(idx + row) : I{0};
+        g[r] = static_cast<Off>(x < 0 ? 0 : (x > hi ? hi : x));
+      }
+      for (int u0 = u_first; u0 < u_last; u0 += kChunk) {
+        uint64_t v[kChunk][kRows];
+        // every load of the chunk before any store
+#pragma unroll
+        for (int c = 0; c < kChunk; ++c) {
+          if (u0 + c >= u_last) break;
+          const Unit& u = p.unit[u0 + c];
+          switch (u.lw) {
+            case 0: load_unit<0, Off>(u, g, pol, v[c]); break;
+            case 1: load_unit<1, Off>(u, g, pol, v[c]); break;
+            case 2: load_unit<2, Off>(u, g, pol, v[c]); break;
+            default: load_unit<3, Off>(u, g, pol, v[c]); break;
+          }
+        }
+#pragma unroll
+        for (int c = 0; c < kChunk; ++c) {
+          if (u0 + c >= u_last) break;
+          const Unit& u = p.unit[u0 + c];
+          switch (u.lw) {
+            case 0: store_unit<0>(u, row0, p.rows, v[c]); break;
+            case 1: store_unit<1>(u, row0, p.rows, v[c]); break;
+            case 2: store_unit<2>(u, row0, p.rows, v[c]); break;
+            default: store_unit<3>(u, row0, p.rows, v[c]); break;
+          }
+        }
+      }
+    }
+    if (groups > 1) __syncthreads();  // local[] is read before it is reset
+  }
+}
+
+template <typename I>
+int launch_rows(const Params& p, bool wide, dim3 grid, cudaStream_t s) {
+  if (wide)
+    gather_rows_kernel<I, uint64_t><<<grid, kThreads, 0, s>>>(p);
+  else
+    gather_rows_kernel<I, uint32_t><<<grid, kThreads, 0, s>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// -------------------------------------------------------- the strided body
 
 struct Table {
   const void* src[kMaxPairs];
@@ -54,8 +300,9 @@ struct Strides {
 
 template <typename T, typename I, bool kFlat>
 __global__ void __launch_bounds__(kThreads)
-gather_kernel(const Table tab, const I* __restrict__ idx, int64_t rows,
-              int64_t width, int64_t n, const Strides st) {
+gather_strided_kernel(const Table tab, const I* __restrict__ idx,
+                      int64_t rows, int64_t width, int64_t n,
+                      const Strides st) {
   const int64_t total = rows * width;
   const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
   for (int64_t e = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
@@ -74,44 +321,81 @@ gather_kernel(const Table tab, const I* __restrict__ idx, int64_t rows,
 }
 
 template <typename T, typename I>
-int launch(const Table& tab, const void* idx, int64_t rows, int64_t width,
-           int64_t n, const Strides& st, int blocks, cudaStream_t stream) {
+int launch_strided(const Table& tab, const void* idx, int64_t rows,
+                   int64_t width, int64_t n, const Strides& st, int blocks,
+                   cudaStream_t stream) {
   const I* ix = static_cast<const I*>(idx);
   if (width == 1 && st.ics == 0 && st.sjs == 0 && st.sis == 0)
-    gather_kernel<T, I, true><<<blocks, kThreads, 0, stream>>>(
+    gather_strided_kernel<T, I, true><<<blocks, kThreads, 0, stream>>>(
         tab, ix, rows, width, n, st);
   else
-    gather_kernel<T, I, false><<<blocks, kThreads, 0, stream>>>(
+    gather_strided_kernel<T, I, false><<<blocks, kThreads, 0, stream>>>(
         tab, ix, rows, width, n, st);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
-int launch_idx(const Table& tab, const void* idx, int idx_w, int64_t rows,
-               int64_t width, int64_t n, const Strides& st, int blocks,
-               cudaStream_t stream) {
+int launch_strided_idx(const Table& tab, const void* idx, int idx_w,
+                       int64_t rows, int64_t width, int64_t n,
+                       const Strides& st, int blocks, cudaStream_t stream) {
   if (idx_w == 4)
-    return launch<T, int32_t>(tab, idx, rows, width, n, st, blocks, stream);
+    return launch_strided<T, int32_t>(tab, idx, rows, width, n, st, blocks,
+                                      stream);
   if (idx_w == 8)
-    return launch<T, int64_t>(tab, idx, rows, width, n, st, blocks, stream);
+    return launch_strided<T, int64_t>(tab, idx, rows, width, n, st, blocks,
+                                      stream);
   return -1;
 }
 
 }  // namespace
 
-extern "C" int p1_gather_threads() { return kThreads; }
-extern "C" int p1_gather_max_pairs() { return kMaxPairs; }
+// The layout and geometry this library was built with, for the wrapper to
+// check against its ctypes mirror before any launch: {kThreads, kMaxUnits,
+// kLoads, kMaxPairs, sizeof(Unit), sizeof(Params), kRows}.
+extern "C" void p1_gather_geometry(int64_t* out) {
+  out[0] = kThreads;
+  out[1] = kMaxUnits;
+  out[2] = kLoads;
+  out[3] = kMaxPairs;
+  out[4] = sizeof(Unit);
+  out[5] = sizeof(Params);
+  out[6] = kRows;
+}
 
-// srcs / dsts: `count` device pointers each (host arrays), elements of
-// elem_w bytes (1, 2, 4 or 8).  idx: int32 (idx_w 4) or int64 (idx_w 8).
-// Every destination holds rows * width elements; n >= 1 is the length of the
-// gathered axis.  strides: {irs, ics, sgs, sis, sjs} as above, in elements.
+// The row body: `p` describes the call (units, index, rows, n), `idx_w` the
+// index width (4 or 8), `wide` 64-bit offsets, `blocks` x `groups` the grid
+// (groups * p->per_group >= count).
 // Returns cudaGetLastError() after the launch, or a negative code for an
 // argument the kernel does not take.
-extern "C" int p1_gather(const void* const* srcs, void* const* dsts, int count,
-                         int elem_w, const void* idx, int idx_w, int64_t rows,
-                         int64_t width, int64_t n, const int64_t* strides,
-                         int blocks, void* stream) {
+extern "C" int p1_gather_rows(const void* params, int idx_w, int wide,
+                              int blocks, int groups, void* stream) {
+  const Params* p = static_cast<const Params*>(params);
+  if (p->count < 1 || p->count > kMaxUnits || p->per_group < 1 ||
+      groups < 1 || static_cast<int64_t>(groups) * p->per_group < p->count)
+    return -2;
+  if (p->n < 1 || p->rows < 1 || blocks < 1) return -3;
+  for (int u = 0; u < p->count; ++u)
+    if (p->unit[u].lw < 0 || p->unit[u].lw > 3 || p->unit[u].stride < 1)
+      return -4;
+  const dim3 grid(blocks, groups);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (idx_w == 4)
+    return launch_rows<int32_t>(*p, wide != 0, grid, s);
+  if (idx_w == 8)
+    return launch_rows<int64_t>(*p, wide != 0, grid, s);
+  return -1;
+}
+
+// The strided body: srcs / dsts `count` device pointers each (host arrays),
+// elements of elem_w bytes (1, 2, 4 or 8).  idx: int32 (idx_w 4) or int64
+// (idx_w 8).  Every destination holds rows * width elements; n >= 1 is the
+// length of the gathered axis.  strides: {irs, ics, sgs, sis, sjs} as above,
+// in elements.
+extern "C" int p1_gather_strided(const void* const* srcs, void* const* dsts,
+                                 int count, int elem_w, const void* idx,
+                                 int idx_w, int64_t rows, int64_t width,
+                                 int64_t n, const int64_t* strides,
+                                 int blocks, void* stream) {
   if (count < 1 || count > kMaxPairs) return -2;
   if (n < 1 || rows < 1 || width < 1 || blocks < 1) return -3;
   Table tab = {};
@@ -125,13 +409,17 @@ extern "C" int p1_gather(const void* const* srcs, void* const* dsts, int count,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (elem_w) {
     case 1:
-      return launch_idx<uint8_t>(tab, idx, idx_w, rows, width, n, st, blocks, s);
+      return launch_strided_idx<uint8_t>(tab, idx, idx_w, rows, width, n, st,
+                                         blocks, s);
     case 2:
-      return launch_idx<uint16_t>(tab, idx, idx_w, rows, width, n, st, blocks, s);
+      return launch_strided_idx<uint16_t>(tab, idx, idx_w, rows, width, n, st,
+                                          blocks, s);
     case 4:
-      return launch_idx<uint32_t>(tab, idx, idx_w, rows, width, n, st, blocks, s);
+      return launch_strided_idx<uint32_t>(tab, idx, idx_w, rows, width, n, st,
+                                          blocks, s);
     case 8:
-      return launch_idx<uint64_t>(tab, idx, idx_w, rows, width, n, st, blocks, s);
+      return launch_strided_idx<uint64_t>(tab, idx, idx_w, rows, width, n, st,
+                                          blocks, s);
     default:
       return -1;
   }

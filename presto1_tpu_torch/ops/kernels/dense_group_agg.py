@@ -426,13 +426,11 @@ def _dense_group_agg(word, num_groups, columns, slots,
     slot_red = ints(*[_REDUCE[op] for op, _, _ in slots])
     slot_valid = (ctypes.c_void_p * max(K, 1))(
         *[None if v is None else v.data_ptr() for _, _, v in slots])
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.p1_dense_group_agg(
-            word.data_ptr(), word.element_size(), n, G, V, ptrs_v, types_v,
-            K, slot_col, slot_take, slot_red, slot_valid, PATHS[plan.path],
-            plan.threads, plan.shared, plan.blocks, buf[GS:].data_ptr(),
-            counts.data_ptr(), first.data_ptr(), table.data_ptr(), stream)
+    err = _build.launch_on(dev, lambda stream: lib.p1_dense_group_agg(
+        word.data_ptr(), word.element_size(), n, G, V, ptrs_v, types_v,
+        K, slot_col, slot_take, slot_red, slot_valid, PATHS[plan.path],
+        plan.threads, plan.shared, plan.blocks, buf[GS:].data_ptr(),
+        counts.data_ptr(), first.data_ptr(), table.data_ptr(), stream))
     if err != 0:
         raise RuntimeError(
             f"dense_group_agg kernel launch failed: error {err} (n={n}, "

@@ -115,14 +115,12 @@ def _launch(ship, disc, qty, price, bounds):
     sms = _build.sm_count(dev)
     blocks = max(1, min(-(-n // rows_per_block), sms * 8))
     partials = torch.empty((blocks, 3), dtype=torch.int64, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.p1_filter_sum(
-            ship.data_ptr(), ship.element_size(),
-            disc.data_ptr(), disc.element_size(),
-            qty.data_ptr(), qty.element_size(),
-            price.data_ptr(), price.element_size(),
-            bounds.data_ptr(), partials.data_ptr(), n, blocks, stream)
+    err = _build.launch_on(dev, lambda stream: lib.p1_filter_sum(
+        ship.data_ptr(), ship.element_size(),
+        disc.data_ptr(), disc.element_size(),
+        qty.data_ptr(), qty.element_size(),
+        price.data_ptr(), price.element_size(),
+        bounds.data_ptr(), partials.data_ptr(), n, blocks, stream))
     if err != 0:
         raise RuntimeError(f"filter_sum kernel launch failed: CUDA error "
                            f"{err} (n={n}, blocks={blocks})")

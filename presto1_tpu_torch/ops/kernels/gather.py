@@ -1,10 +1,10 @@
 """Clamped gathers: columns and rows at an index vector, and along an axis.
 
 ``gather_rows(sources, idx)`` is ``[s[clamp(idx, 0, n-1)] for s in sources]``
-along axis 0 for tensors that share their first dimension; 1-D columns of one
-element width share one launch (the index is read once per row), an ``[n, W]``
-matrix moves its rows whole.  ``take_along_axis(x, idx, axis)`` is numpy's
-function of that name on a 2-D ``x`` with clamped indices.
+along axis 0 for tensors that share their first dimension: every source, 1-D
+or ``[n, W]``, of any element width, moves in ONE launch (the index is read
+once per row).  ``take_along_axis(x, idx, axis)`` is numpy's function of
+that name on a 2-D ``x`` with clamped indices.
 
 Replaces the gather probes of the JAX package: ``t1`` and ``t1b`` of
 ``experiments/pallas_primitives.py`` (``take`` of a vector, and of matrix
@@ -17,8 +17,15 @@ through here (``batch.take_clamped`` / ``Column.gather`` /
 
 Bound on an H100: memory.  The index is read and the output written once,
 coalesced; the source is read wherever the index says, a 32-byte sector for
-each element when the index is a random permutation.  One CUDA body
-(``csrc/gather.cu``) with five strides serves all four shapes.
+each element when the index is a random permutation, so a random gather is
+bound by the card's random sector rate, which falls as the source outgrows
+the L2.  ``csrc/gather.cu`` has two bodies: the row body (``gather_rows``:
+``ROWS_PER_THREAD`` warp-interleaved rows a thread, the loads of a chunk of
+columns in flight before any store, evict-last loads of the sources and
+evict-first streams, column groups on ``blockIdx.y`` when the sources
+exceed half the L2, tiles whose indices stay local moved whole by one group
+in turn; the launch's shape is ``plan_gather``'s) and the strided body of
+the earlier design (``take_along_axis``: an index per element).
 
 The ``*_plain`` functions are the same functions in plain tensor ops.  The
 wrappers take them only for tensors that lie on the CPU; for CUDA tensors
@@ -28,17 +35,85 @@ they launch the kernel or raise.
 from __future__ import annotations
 
 import ctypes
-from typing import List, Sequence
+import itertools
+import struct
+from typing import List, NamedTuple, Sequence
 
 import torch
 
 from . import _build
 
-# launches of the CUDA kernel by this module's wrappers (and nothing else)
+# launches of the CUDA kernels by this module's wrappers (and nothing else)
 LAUNCHES = 0
+
+# the geometry of csrc/gather.cu (checked against the library)
+THREADS = 256
+MAX_UNITS = 64      # word columns one launch of the row body takes
+LOADS = 16          # source words a thread of the row body keeps in flight
+MAX_PAIRS = 32      # (source, destination) pairs of the strided body
+ROWS_PER_THREAD = 4  # R: measured fastest at every element width
+BLOCKS_PER_SM = 64  # blocks an SM, at most, in a one-group grid
+# blocks an SM of each group when there are groups: fewer, so that a block
+# probes several tiles at once, and enough that a group fills the card (4,
+# 16 and 64 measured: 16 the best compromise over the main paths' calls)
+GROUP_BLOCKS_PER_SM = 16
 
 _IDX_DTYPES = (torch.int32, torch.int64)
 _WIDTHS = (1, 2, 4, 8)
+_LOG2 = {1: 0, 2: 1, 4: 2, 8: 3}
+
+
+# Params of csrc/gather.cu, packed by struct (a few times cheaper than
+# filling a ctypes structure field by field): idx, rows, n, count,
+# per_group, keep, unused, then Unit[MAX_UNITS] (src, dst, lw, stride), the
+# unused units zero; one format a unit count
+_HEAD = "<Qqqiiii"
+_UNIT = "QQii"
+_PACK = {}
+
+
+def _packer(count: int) -> struct.Struct:
+    s = _PACK.get(count)
+    if s is None:
+        s = _PACK[count] = struct.Struct(
+            _HEAD + _UNIT * count
+            + f"{(MAX_UNITS - count) * struct.calcsize('<' + _UNIT)}x")
+    return s
+
+
+class GatherPlan(NamedTuple):
+    wide: bool           # 64-bit source offsets
+    blocks: int          # blockIdx.x extent (grid-stride beyond)
+    groups: int          # blockIdx.y extent: groups of units
+    per_group: int       # units a group takes
+    keep: bool           # a group's sources fit the budget: evict-last
+
+
+def plan_gather(rows: int, n: int, units: Sequence[tuple], sms: int,
+                l2_bytes: int) -> GatherPlan:
+    """The launch of the row body for ``rows`` output rows from ``n``
+    source rows through ``units``, ``(word bytes, words a row)`` each.
+
+    32-bit offsets where every source byte offset fits; groups of units on
+    ``blockIdx.y`` when the sources (``n`` words of every unit) exceed the
+    budget, half the L2, and there is more than one unit, each group's
+    sources within the budget or one unit a group; the evict-last policy
+    only where a group's sources fit the budget; a tile of
+    ``ROWS_PER_THREAD`` rows a thread, at most ``BLOCKS_PER_SM`` blocks an
+    SM, ``GROUP_BLOCKS_PER_SM`` a group with groups."""
+    widest = max(w for w, _ in units)
+    wide = n * max(w * k for w, k in units) > 2 ** 32
+    budget = l2_bytes // 2
+    source = n * sum(w for w, _ in units)
+    per_group = len(units)
+    if len(units) > 1 and source > budget:
+        per_group = max(1, budget // (n * widest))
+    groups = -(-len(units) // per_group)
+    keep = (source if groups == 1 else n * per_group * widest) <= budget
+    tiles = -(-rows // ROWS_PER_THREAD)
+    per_sm = BLOCKS_PER_SM if groups == 1 else GROUP_BLOCKS_PER_SM
+    blocks = max(1, min(-(-tiles // THREADS), sms * per_sm))
+    return GatherPlan(wide, blocks, groups, per_group, keep)
 
 
 def _clamped(idx: torch.Tensor, n: int) -> torch.Tensor:
@@ -64,18 +139,33 @@ def take_along_axis_plain(x: torch.Tensor, idx: torch.Tensor,
     return torch.take_along_dim(x, _clamped(idx, x.shape[axis]), dim=axis)
 
 
+_READY = None  # the library whose prototypes and geometry are set
+
+
 def _library():
+    """The loaded library (built first if need be), its prototypes set and
+    its geometry checked against this module's once."""
+    global _READY
     lib = _build.load("gather")
-    fn = lib.p1_gather
-    if fn.argtypes is None:
-        p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-        pp = ctypes.POINTER(ctypes.c_void_p)
-        fn.argtypes = [pp, pp, i, i, p, i, i64, i64, i64,
-                       ctypes.POINTER(i64), i, p]
-        fn.restype = i
-        for f in (lib.p1_gather_threads, lib.p1_gather_max_pairs):
-            f.argtypes = []
-            f.restype = i
+    if lib is _READY:
+        return lib
+    p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+    pp = ctypes.POINTER(ctypes.c_void_p)
+    lib.p1_gather_rows.argtypes = [ctypes.c_char_p, i, i, i, i, p]
+    lib.p1_gather_rows.restype = i
+    lib.p1_gather_strided.argtypes = [pp, pp, i, i, p, i, i64, i64, i64,
+                                      ctypes.POINTER(i64), i, p]
+    lib.p1_gather_strided.restype = i
+    lib.p1_gather_geometry.argtypes = [ctypes.POINTER(i64)]
+    lib.p1_gather_geometry.restype = None
+    got = (i64 * 7)()
+    lib.p1_gather_geometry(got)
+    want = (THREADS, MAX_UNITS, LOADS, MAX_PAIRS,
+            struct.calcsize("<" + _UNIT), _packer(1).size, ROWS_PER_THREAD)
+    if tuple(got) != want:
+        raise RuntimeError(f"csrc/gather.cu's geometry {tuple(got)} is not "
+                           f"this module's {want}")
+    _READY = lib
     return lib
 
 
@@ -89,25 +179,73 @@ def _check_idx(idx, dim: int):
                          f"{tuple(idx.shape)}")
 
 
-def _launch(srcs, dsts, idx, rows: int, width: int, n: int, strides):
-    """One launch: ``srcs`` / ``dsts`` are contiguous tensors of one element
-    width on ``idx``'s device."""
+def _units(sources, outs) -> list:
+    """``(src, dst, log2 word bytes, words a row)`` of every word column:
+    a 1-D column is one unit of its element width; an ``[n, W]`` matrix one
+    unit per word of its row, the widest word (at most 8 bytes) that
+    divides the row and both addresses."""
+    units = []
+    for s, o in zip(sources, outs):
+        w = s.element_size()
+        if s.dim() == 1:
+            units.append((s.data_ptr(), o.data_ptr(), _LOG2[w], 1))
+            continue
+        row = w * s.shape[1]
+        sp, dp = s.data_ptr(), o.data_ptr()
+        ww = next(x for x in (8, 4, 2, 1)
+                  if row % x == 0 and sp % x == 0 and dp % x == 0)
+        k = row // ww
+        units.extend((sp + j * ww, dp + j * ww, _LOG2[ww], k)
+                     for j in range(k))
+    return units
+
+
+def _gather(sources, outs, idx: torch.Tensor) -> None:
+    """The row body for contiguous ``sources`` (``n >= 1`` rows) into
+    ``outs`` (each ``[m, ...]`` like its source, on ``idx``'s device, at
+    any address), ``m = len(idx) >= 1``: one launch a ``MAX_UNITS`` word
+    columns."""
+    global LAUNCHES
+    lib = _library()
+    dev = idx.device
+    m, n = idx.shape[0], sources[0].shape[0]
+    units = _units(sources, outs)
+    sms, l2 = _build.sm_count(dev), _build.l2_bytes(dev)
+    iw = idx.element_size()
+    for at in range(0, len(units), MAX_UNITS):
+        part = units[at:at + MAX_UNITS]
+        plan = plan_gather(m, n, [(1 << lw, k) for _, _, lw, k in part],
+                           sms, l2)
+        params = _packer(len(part)).pack(
+            idx.data_ptr(), m, n, len(part), plan.per_group, int(plan.keep),
+            0, *itertools.chain.from_iterable(part))
+        err = _build.launch_on(dev, lambda stream: lib.p1_gather_rows(
+            params, iw, int(plan.wide), plan.blocks, plan.groups, stream))
+        if err != 0:
+            raise RuntimeError(
+                f"gather kernel launch failed: error {err} (units="
+                f"{len(part)}, rows={m}, n={n}, plan={plan})")
+        LAUNCHES += 1
+
+
+def _launch_strided(srcs, dsts, idx, rows: int, width: int, n: int,
+                    strides) -> None:
+    """One launch of the strided body: ``srcs`` / ``dsts`` are at most
+    ``MAX_PAIRS`` contiguous tensors of one element width on ``idx``'s
+    device."""
     global LAUNCHES
     lib = _library()
     dev = idx.device
     count = len(srcs)
-    threads = lib.p1_gather_threads()
-    sms = _build.sm_count(dev)
-    blocks = max(1, min(-(-(rows * width) // threads), sms * 16))
+    blocks = max(1, min(-(-(rows * width) // THREADS),
+                        _build.sm_count(dev) * 16))
     ptrs = ctypes.c_void_p * count
     st = (ctypes.c_int64 * 5)(*strides)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.p1_gather(
-            ptrs(*[s.data_ptr() for s in srcs]),
-            ptrs(*[d.data_ptr() for d in dsts]), count,
-            srcs[0].element_size(), idx.data_ptr(), idx.element_size(),
-            rows, width, n, st, blocks, stream)
+    err = _build.launch_on(dev, lambda stream: lib.p1_gather_strided(
+        ptrs(*[s.data_ptr() for s in srcs]),
+        ptrs(*[d.data_ptr() for d in dsts]), count,
+        srcs[0].element_size(), idx.data_ptr(), idx.element_size(),
+        rows, width, n, st, blocks, stream))
     if err != 0:
         raise RuntimeError(
             f"gather kernel launch failed: error {err} (count={count}, "
@@ -122,56 +260,44 @@ def gather_rows(sources: Sequence[torch.Tensor],
     ``sources``: contiguous 1-D or 2-D tensors with one first dimension ``n``
     on ``idx``'s device, elements of 1, 2, 4 or 8 bytes (any dtype: they are
     moved as words).  ``idx``: 1-D int32/int64.  An empty source gives zeros
-    (there is no row to clamp to)."""
+    (there is no row to clamp to).  On a CUDA device one launch moves them
+    all (one a ``MAX_UNITS`` word columns)."""
     sources = list(sources)
     _check_idx(idx, 1)
+    dev = idx.device
+    n = sources[0].shape[0] if sources else 0
     for k, s in enumerate(sources):
         if not isinstance(s, torch.Tensor):
             raise TypeError(f"sources[{k}]: expected a tensor")
-        if s.device != idx.device:
-            raise ValueError(f"sources[{k}] on {s.device}, idx on "
-                             f"{idx.device}")
+        if s.device != dev:
+            raise ValueError(f"sources[{k}] on {s.device}, idx on {dev}")
         if s.dim() not in (1, 2):
             raise ValueError(f"sources[{k}]: expected 1-D or 2-D, got shape "
                              f"{tuple(s.shape)}")
-        if s.shape[0] != sources[0].shape[0]:
+        if s.shape[0] != n:
             raise ValueError(f"sources[{k}]: {s.shape[0]} rows, sources[0] "
-                             f"has {sources[0].shape[0]}")
+                             f"has {n}")
         if s.element_size() not in _WIDTHS:
             raise TypeError(f"sources[{k}]: dtype {s.dtype} is not 1, 2, 4 "
                             f"or 8 bytes wide")
         if not s.is_contiguous():
             raise ValueError(f"sources[{k}]: tensor is not contiguous")
-    if idx.device.type == "cpu":
+    if dev.type == "cpu":
         return gather_rows_plain(sources, idx)
-    if idx.device.type != "cuda":
-        raise ValueError(f"unsupported device {idx.device}")
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
     if not sources:
         return []
-    max_pairs = _library().p1_gather_max_pairs()
+    _library()
     m = idx.shape[0]
-    n = sources[0].shape[0]
     idx = idx.contiguous()
-    make = torch.zeros if n == 0 else torch.empty
-    outs = [make((m,) + tuple(s.shape[1:]), dtype=s.dtype, device=s.device)
-            for s in sources]
-    if n == 0 or m == 0:
-        return outs
-    # 1-D columns: one launch per element width (and per 32 columns)
-    by_width: dict = {}
-    for k, s in enumerate(sources):
-        if s.dim() == 1:
-            by_width.setdefault(s.element_size(), []).append(k)
-    for ks in by_width.values():
-        for at in range(0, len(ks), max_pairs):
-            part = ks[at:at + max_pairs]
-            _launch([sources[k] for k in part], [outs[k] for k in part],
-                    idx, m, 1, n, (1, 0, 1, 0, 0))
-    # [n, W] matrices: rows moved whole
-    for k, s in enumerate(sources):
-        if s.dim() == 2 and s.shape[1] > 0:
-            w = s.shape[1]
-            _launch([s], [outs[k]], idx, m, w, n, (1, 0, w, 0, 1))
+    if n == 0:
+        return [s.new_zeros((m,) + tuple(s.shape[1:])) for s in sources]
+    outs = [s.new_empty((m,) + tuple(s.shape[1:])) for s in sources]
+    # an [n, 0] matrix has nothing to move
+    moved = [k for k, s in enumerate(sources) if s.dim() == 1 or s.shape[1]]
+    if m and moved:
+        _gather([sources[k] for k in moved], [outs[k] for k in moved], idx)
     return outs
 
 
@@ -206,10 +332,10 @@ def take_along_axis(x: torch.Tensor, idx: torch.Tensor,
         if rows * width:
             raise IndexError("take_along_axis over an empty axis")
         return x.new_zeros((rows, width))
-    out = torch.empty((rows, width), dtype=x.dtype, device=x.device)
+    out = x.new_empty((rows, width))
     if rows * width == 0:
         return out
     wx = x.shape[1]
     strides = (width, 1, wx, 0, 1) if axis == 0 else (width, 1, 1, wx, 0)
-    _launch([x], [out], idx, rows, width, n, strides)
+    _launch_strided([x], [out], idx, rows, width, n, strides)
     return out

@@ -213,14 +213,12 @@ def scatter_distinct(idx: torch.Tensor, x: Values, size: int,
     base, head = _mask_base(mask) if mask is not None else (None, 0)
     blocks = scatter_plan(n, head, _build.sm_count(dev))
     k = len(cols)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.p1_scatter(
-            idx.data_ptr(), idx.element_size(), base, head, n, size, k,
-            (ctypes.c_void_p * k)(*[c.data_ptr() for c in cols]),
-            (ctypes.c_int * k)(*widths),
-            (ctypes.c_void_p * k)(*[o.data_ptr() for o in outs]),
-            buf.data_ptr(), buf.numel(), blocks, stream)
+    err = _build.launch_on(dev, lambda stream: lib.p1_scatter(
+        idx.data_ptr(), idx.element_size(), base, head, n, size, k,
+        (ctypes.c_void_p * k)(*[c.data_ptr() for c in cols]),
+        (ctypes.c_int * k)(*widths),
+        (ctypes.c_void_p * k)(*[o.data_ptr() for o in outs]),
+        buf.data_ptr(), buf.numel(), blocks, stream))
     if err != 0:
         raise RuntimeError(f"scatter kernel launch failed: error {err} "
                            f"(n={n}, size={size}, columns={k})")
@@ -259,11 +257,9 @@ def compact(mask: torch.Tensor, capacity: int):
     out = torch.empty((capacity,), dtype=torch.int64, device=dev)
     # one allocation for the chunk counts and the count
     scratch = torch.empty((blocks + 1,), dtype=torch.int64, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.p1_compact(base, head, n, chunk, blocks,
-                             scratch.data_ptr(), out.data_ptr(), capacity,
-                             scratch[blocks:].data_ptr(), stream)
+    err = _build.launch_on(dev, lambda stream: lib.p1_compact(
+        base, head, n, chunk, blocks, scratch.data_ptr(), out.data_ptr(),
+        capacity, scratch[blocks:].data_ptr(), stream))
     if err != 0:
         raise RuntimeError(f"compaction kernel launch failed: error {err} "
                            f"(n={n}, capacity={capacity}, blocks={blocks})")
