@@ -4,8 +4,10 @@
     python3 chip_smoke.py
 
 Drives the main paths of ``presto1_tpu_torch`` on the card -- TPC-H Q6, Q1,
-the revenue view of Q15 and Q3, and TPC-DS Q27 (ROLLUP: joins and a Union)
-and Q93 (a LEFT join), all at scale factor 1, through ``Engine.sql`` and
+the revenue view of Q15, Q3 and Q7 (civil dates), a statement of four
+window functions over every lineitem row, and TPC-DS Q27 (ROLLUP: joins and
+a Union), Q93 (a LEFT join) and Q98 (a window over an aggregate), all at
+scale factor 1, through ``Engine.sql`` and
 ``Engine.compile(...)`` / ``CompiledQuery.block_run`` -- builds every
 hand-written kernel from the sources in this checkout, holds each against
 its plain PyTorch version on the card (integers exactly, float64 sums to
@@ -29,6 +31,7 @@ bytes over the device-to-device copy rate measured in this run).
 
 from __future__ import annotations
 
+import contextlib
 import json
 import re
 import statistics
@@ -1187,24 +1190,26 @@ def _launch_counters() -> dict:
 
     return {"filter_sum": (F, "LAUNCHES"), "dense_group_agg": (D, "LAUNCHES"),
             "gather": (G, "LAUNCHES"), "scatter": (S, "LAUNCHES"),
-            "compact": (S, "COMPACT_LAUNCHES"), "dyncopy": (DC, "LAUNCHES")}
+            "compact": (S, "COMPACT_LAUNCHES"), "dyncopy": (DC, "LAUNCHES"),
+            "take_along_axis": (G, "TAKE_LAUNCHES")}
 
 
 def _kernel_taps():
-    """Taps on ``gather_rows``, ``scatter_distinct`` and ``compact`` in
-    every module of the port that binds them."""
+    """Taps on ``gather_rows``, ``scatter_distinct``, ``compact`` and
+    ``take_along_axis`` in every module of the port that binds them."""
     from presto1_tpu_torch.ops import common as C, hashagg as H, \
-        join as J, segments as SEG
+        join as J, segments as SEG, window as W
     from presto1_tpu_torch.ops.kernels import gather as G, scatter as S
 
     # batch.py looks gather_rows up in G at each call
-    return (_Tap("gather_rows", [G, C, H, SEG, J]),
-            _Tap("scatter_distinct", [S, J]), _Tap("compact", [S, SEG]))
+    return (_Tap("gather_rows", [G, C, H, SEG, J, W]),
+            _Tap("scatter_distinct", [S, J, W]), _Tap("compact", [S, SEG]),
+            _Tap("take_along_axis", [G, W]))
 
 
 # the wrapper each launch counter's kernel is tapped at
 _TAPPED = {"gather": "gather_rows", "scatter": "scatter_distinct",
-           "compact": "compact"}
+           "compact": "compact", "take_along_axis": "take_along_axis"}
 
 
 def _hold_taps(what: str, taps, must) -> dict:
@@ -1218,7 +1223,8 @@ def _hold_taps(what: str, taps, must) -> dict:
 
     plain = {"gather_rows": G.gather_rows_plain,
              "scatter_distinct": S.scatter_distinct_plain,
-             "compact": S.compact_plain}
+             "compact": S.compact_plain,
+             "take_along_axis": G.take_along_axis_plain}
     out = {}
     for tap in taps:
         worst, most = 0.0, 0
@@ -1547,7 +1553,9 @@ def _engine_phase(name: str, engine, sql: str, check, reps: int = 20,
     # compaction call the path makes, at its largest, against the plain
     # versions
     taps = _kernel_taps()
-    with taps[0], taps[1], taps[2]:
+    with contextlib.ExitStack() as stack:
+        for tap in taps:
+            stack.enter_context(tap)
         check(engine.sql(sql), "Engine.sql (tapped)")
     held = _hold_taps(name, taps, must=[_TAPPED[k] for k in need
                                         if k in _TAPPED])
@@ -1555,7 +1563,7 @@ def _engine_phase(name: str, engine, sql: str, check, reps: int = 20,
     return {"run": run, "ms": sum(ms_trials) / 2, "ms_trials": ms_trials,
             "profile": _profile(run["cq"]), "held": held,
             "gather_args": taps[0].args, "scatter_args": taps[1].args,
-            "compact_args": taps[2].args}
+            "compact_args": taps[2].args, "take_args": taps[3].args}
 
 
 def _numpy_q3(li, orders, cust, seg_code: int) -> list:
@@ -1838,6 +1846,359 @@ def phase_q93_engine(catalog) -> dict:
     return {"launches": run["launches"], "ms_per_run": out["ms"],
             "profile": out["profile"], "held": out["held"],
             "gather_args": out["gather_args"]}
+
+
+def _numpy_q7(catalog) -> tuple:
+    """TPC-H Q7 (clause 2.4.7: NATION1 FRANCE, NATION2 GERMANY) over host
+    columns in int64: rows of (supp_nation, cust_nation, l_year, unscaled
+    revenue at scale 4) in the statement's order."""
+    t0 = time.time()
+    li, _, _, _ = _load_columns(catalog, "lineitem",
+                                ("l_orderkey", "l_suppkey", "l_extendedprice",
+                                 "l_discount", "l_shipdate"))
+    orders, _, _, _ = _load_columns(catalog, "orders",
+                                    ("o_orderkey", "o_custkey"))
+    cust, _, _, _ = _load_columns(catalog, "customer",
+                                  ("c_custkey", "c_nationkey"))
+    supp, _, _, _ = _load_columns(catalog, "supplier",
+                                  ("s_suppkey", "s_nationkey"))
+    nat, _, ndicts, _ = _load_columns(catalog, "nation",
+                                      ("n_nationkey", "n_name"))
+    load_s = time.time() - t0
+    names = np.asarray(ndicts["n_name"])[nat["n_name"]]
+    m = (li["l_shipdate"] >= _day("1995-01-01")) \
+        & (li["l_shipdate"] <= _day("1996-12-31"))
+    sn, h1 = _lookup(supp["s_suppkey"], supp["s_nationkey"],
+                     li["l_suppkey"][m])
+    ck, h2 = _lookup(orders["o_orderkey"], orders["o_custkey"],
+                     li["l_orderkey"][m])
+    cn, h3 = _lookup(cust["c_custkey"], cust["c_nationkey"], ck)
+    sname, h4 = _lookup(nat["n_nationkey"], names, sn)
+    cname, h5 = _lookup(nat["n_nationkey"], names, cn)
+    keep = h1 & h2 & h3 & h4 & h5 & (
+        ((sname == "FRANCE") & (cname == "GERMANY"))
+        | ((sname == "GERMANY") & (cname == "FRANCE")))
+    year = li["l_shipdate"][m].astype("datetime64[D]") \
+        .astype("datetime64[Y]").astype(np.int64) + 1970
+    volume = li["l_extendedprice"][m].astype(np.int64) \
+        * (100 - li["l_discount"][m].astype(np.int64))
+    rows = []
+    for s_ in sorted(set(sname[keep].tolist())):
+        for c_ in sorted(set(cname[keep].tolist())):
+            for y in sorted(set(year[keep].tolist())):
+                g = keep & (sname == s_) & (cname == c_) & (year == y)
+                if g.any():
+                    rows.append((s_, c_, y, int(volume[g].sum())))
+    return rows, int(keep.sum()), load_s
+
+
+def phase_q7_engine(catalog) -> dict:
+    """TPC-H Q7 at the catalog's scale factor: the civil-date slice.
+    ``extract(year from l_shipdate)`` over the lineitem rows of two years,
+    five N:1 inner joins (supplier, orders, customer and the nation table
+    twice) and a grouped sum of the four (nation, nation, year) groups."""
+    from presto1_tpu_torch.exec.engine import Engine
+    from presto1_tpu_torch.tpch.queries import QUERIES
+
+    want, joined, load_s = _numpy_q7(catalog)
+    if len(want) != 4:
+        raise AssertionError(f"Q7 reference has {len(want)} rows, not 4: "
+                             f"the data is wrong")
+    types = ["varchar", "varchar", "bigint", "decimal(38,4)"]
+
+    def check(batch, what):
+        cols = list(batch.columns.values())
+        if [str(c.type) for c in cols] != types or \
+                not all(c.data.is_cuda for c in cols):
+            raise AssertionError(f"{what}: unexpected Q7 output columns")
+        if batch.num_rows != len(want):
+            raise AssertionError(f"{what}: {batch.num_rows} rows, numpy "
+                                 f"{len(want)}")
+        k = batch.num_rows
+        for c in cols:
+            if c.validity is not None and not bool(c.validity[:k].all()):
+                raise AssertionError(f"{what}: NULL in Q7's output")
+        got = list(zip([str(v) for v in cols[0].decode(k)],
+                       [str(v) for v in cols[1].decode(k)],
+                       *[c.data[:k].cpu().tolist() for c in cols[2:]]))
+        if got != want:
+            raise AssertionError(f"{what}: Q7 {got} != numpy {want}")
+
+    engine = Engine(catalog, device="cuda")
+    out = _engine_phase("Q7", engine, QUERIES[7], check,
+                        need=("gather", "scatter", "compact"))
+    run = out["run"]
+    say("q7_engine", sf=catalog.sf, load_seconds=load_s,
+        lineitem_rows=catalog.table("lineitem").num_rows,
+        supplier_rows=catalog.table("supplier").num_rows,
+        rows_joined=joined, rows=[list(r) for r in want],
+        launches=run["launches"], launches_per_step=run["launches_per_step"],
+        ms_per_run=out["ms"], ms_trials=out["ms_trials"],
+        profile=out["profile"], held_against_plain=out["held"],
+        agrees_with=["numpy int64 exactly (4 rows)", "eager == compiled"])
+    return {"launches": run["launches"], "ms_per_run": out["ms"],
+            "profile": out["profile"], "held": out["held"]}
+
+
+def _numpy_q98(catalog) -> tuple:
+    """TPC-DS Q98 over host columns: the groups of (i_item_id, i_item_desc,
+    i_category, i_class, i_current_price) with their unscaled revenue and
+    the ratio as the engine computes it (the revenue times 100.0000 as a
+    double over the class's revenue as a double), in the statement's order,
+    the first 100; NULL is None and sorts last."""
+    t0 = time.time()
+    ss, ssv, _, _ = _load_columns(
+        catalog, "store_sales",
+        ("ss_sold_date_sk", "ss_item_sk", "ss_ext_sales_price"))
+    it, itv, itd, _ = _load_columns(
+        catalog, "item", ("i_item_sk", "i_item_id", "i_item_desc",
+                          "i_category", "i_class", "i_current_price"))
+    dd, ddv, _, _ = _load_columns(catalog, "date_dim",
+                                  ("d_date_sk", "d_date"))
+    load_s = time.time() - t0
+    n = len(ss["ss_item_sk"])
+
+    def valid(v, c, k):
+        return np.ones(k, bool) if v[c] is None else v[c]
+
+    day_ok = valid(ddv, "d_date", len(dd["d_date"])) \
+        & (dd["d_date"] >= _day("1999-02-22")) \
+        & (dd["d_date"] <= _day("1999-03-24"))
+    ok_d, hit_d = _lookup(dd["d_date_sk"], day_ok, ss["ss_sold_date_sk"],
+                          valid(ssv, "ss_sold_date_sk", n))
+    row, hit_i = _lookup(it["i_item_sk"], np.arange(len(it["i_item_sk"])),
+                         ss["ss_item_sk"], valid(ssv, "ss_item_sk", n))
+
+    def values(c):
+        """Item column ``c`` as Python values per item row (None = NULL)."""
+        data = it[c]
+        if itd[c] is not None:
+            data = np.asarray(itd[c])[data]
+        ok = valid(itv, c, len(data))
+        return [v if o else None for v, o in zip(data.tolist(), ok)]
+
+    cols = {c: values(c) for c in ("i_item_id", "i_item_desc", "i_category",
+                                   "i_class", "i_current_price")}
+    m = ok_d & hit_d & hit_i
+    price = ss["ss_ext_sales_price"]
+    pvalid = valid(ssv, "ss_ext_sales_price", n)
+    groups = {}
+    for r, p, pv in zip(row[m].tolist(), price[m].tolist(),
+                        pvalid[m].tolist()):
+        if cols["i_category"][r] not in ("Sports", "Books", "Home"):
+            continue
+        key = tuple(cols[c][r] for c in cols)
+        s_ = groups.setdefault(key, [0, 0])
+        if pv:
+            s_[0] += p
+            s_[1] += 1
+    revenue = {k: (s_[0] if s_[1] else None) for k, s_ in groups.items()}
+    by_class = {}
+    for k, r in revenue.items():
+        if r is not None:
+            by_class.setdefault(k[3], []).append(r)
+    rows = []
+    for k, r in revenue.items():
+        total = sum(by_class[k[3]]) if k[3] in by_class else None
+        ratio = None if r is None or total is None else \
+            (float(r * 1_000_000) / 1e6) / (float(total) / 100)
+        rows.append((*k, r, ratio))
+
+    def last_null(v):
+        return (v is None, v if v is not None else 0)
+
+    rows.sort(key=lambda t: (last_null(t[2]), last_null(t[3]),
+                             last_null(t[0]), last_null(t[1]),
+                             last_null(t[6])))
+    return rows[:100], int(m.sum()), len(rows), load_s
+
+
+def phase_q98_engine(catalog) -> dict:
+    """TPC-DS Q98 at the catalog's scale factor: a window over an
+    aggregate (the revenue of each item as a share of its class's) after
+    the joins of store_sales with date_dim and item, then a TopN."""
+    from presto1_tpu_torch.exec.engine import Engine
+    from presto1_tpu_torch.tpcds.queries import QUERIES
+
+    want, joined, groups, load_s = _numpy_q98(catalog)
+    if len(want) != 100 or groups <= 100:
+        raise AssertionError(f"Q98 reference has {groups} groups: the data "
+                             f"is wrong")
+    types = ["varchar", "varchar", "varchar", "varchar", "decimal(7,2)",
+             "decimal(38,2)", "double"]
+
+    def order_key(r):
+        return r[2], r[3], r[0], r[1]
+
+    def check(batch, what):
+        cols = list(batch.columns.values())
+        if [str(c.type) for c in cols] != types or \
+                not all(c.data.is_cuda for c in cols):
+            raise AssertionError(f"{what}: unexpected Q98 output columns")
+        if batch.num_rows != len(want):
+            raise AssertionError(f"{what}: {batch.num_rows} rows, numpy "
+                                 f"{len(want)}")
+        k = batch.num_rows
+        got = [list(c.decode(k)) for c in cols[:4]]
+        for c in cols[4:]:
+            data = c.data[:k].cpu().tolist()
+            ok = [True] * k if c.validity is None \
+                else c.validity[:k].cpu().tolist()
+            got.append([d if o else None for d, o in zip(data, ok)])
+        got = [tuple(None if v is None else (str(v) if j < 4 else v)
+                     for j, v in enumerate(r)) for r in zip(*got)]
+        # the ORDER BY keys row by row; the ratio to 1e-9 relative
+        for r, (g, w) in enumerate(zip(got, want)):
+            same_ratio = (g[6] is None and w[6] is None) or (
+                g[6] is not None and w[6] is not None
+                and abs(g[6] - w[6]) <= 1e-9 * abs(w[6]))
+            if order_key(g) != order_key(w) or not same_ratio:
+                raise AssertionError(f"{what}: Q98 row {r}: {g} != numpy "
+                                     f"{w}")
+        # and every row's price and revenue, where ties of the keys may
+        # order rows either way
+        if sorted(map(str, (r[:6] for r in got))) != \
+                sorted(map(str, (r[:6] for r in want))):
+            raise AssertionError(f"{what}: Q98's rows differ from numpy's")
+
+    engine = Engine(catalog, device="cuda")
+    out = _engine_phase("Q98", engine, QUERIES[98], check,
+                        need=("gather", "scatter", "compact"))
+    run = out["run"]
+    say("q98_engine", sf=catalog.sf, load_seconds=load_s,
+        store_sales_rows=catalog.table("store_sales").num_rows,
+        rows_joined=joined, groups=groups, first_rows=want[:3],
+        launches=run["launches"], launches_per_step=run["launches_per_step"],
+        ms_per_run=out["ms"], ms_trials=out["ms_trials"],
+        profile=out["profile"], held_against_plain=out["held"],
+        agrees_with=["numpy (keys and sums exactly, ratios to 1e-9 "
+                     "relative)", "eager == compiled"])
+    return {"launches": run["launches"], "ms_per_run": out["ms"],
+            "profile": out["profile"], "held": out["held"]}
+
+
+WINDOW_SQL = """select l_orderkey, l_linenumber, l_suppkey,
+    row_number() over (partition by l_orderkey order by l_linenumber) rn,
+    rank() over (partition by l_orderkey order by l_linenumber) rk,
+    sum(l_quantity) over (partition by l_orderkey) qty,
+    min(l_extendedprice) over (partition by l_suppkey
+        order by l_shipdate, l_orderkey, l_linenumber
+        rows between 3 preceding and current row) mn
+from lineitem"""
+
+
+def _numpy_window(li: dict) -> dict:
+    """``WINDOW_SQL`` over host columns in int64, in the table's row
+    order."""
+    ok, ln, sk = li["l_orderkey"], li["l_linenumber"], li["l_suppkey"]
+    n = len(ok)
+    at = np.arange(n)
+    o1 = np.lexsort((at, ln, ok))
+    sok, sln = ok[o1], ln[o1]
+    part = np.r_[True, sok[1:] != sok[:-1]]
+    peer = part | np.r_[True, sln[1:] != sln[:-1]]
+    pstart = np.maximum.accumulate(np.where(part, at, 0))
+    qstart = np.maximum.accumulate(np.where(peer, at, 0))
+    rn, rk = np.empty(n, np.int64), np.empty(n, np.int64)
+    rn[o1] = at - pstart + 1
+    rk[o1] = qstart - pstart + 1
+    keys, inverse = np.unique(ok, return_inverse=True)
+    total = np.zeros(len(keys), np.int64)
+    np.add.at(total, inverse, li["l_quantity"].astype(np.int64))
+    o2 = np.lexsort((at, ln, ok, li["l_shipdate"], sk))
+    s2 = sk[o2]
+    v = li["l_extendedprice"][o2].astype(np.int64)
+    low = v.copy()
+    for k in (1, 2, 3):
+        same = np.r_[np.zeros(k, bool), s2[k:] == s2[:-k]]
+        prev = np.r_[np.zeros(k, np.int64), v[:-k]]
+        low = np.where(same, np.minimum(low, prev), low)
+    mn = np.empty(n, np.int64)
+    mn[o2] = low
+    return {"l_orderkey": ok, "l_linenumber": ln, "l_suppkey": sk,
+            "rn": rn, "rk": rk, "qty": total[inverse], "mn": mn}
+
+
+def phase_window_engine(catalog) -> dict:
+    """``WINDOW_SQL`` over every lineitem row: four windows, each one sort
+    of the table by its partition and order keys, partition and peer
+    bounds through the compaction, inputs through the gather, a sliding
+    min through the doubling table read by ``take_along_axis``, and the
+    results back to row order through ``scatter_distinct``."""
+    from presto1_tpu_torch.exec.engine import Engine
+
+    t0 = time.time()
+    li, _, _, _ = _load_columns(catalog, "lineitem",
+                                ("l_orderkey", "l_linenumber", "l_suppkey",
+                                 "l_quantity", "l_extendedprice",
+                                 "l_shipdate"))
+    load_s = time.time() - t0
+    t0 = time.time()
+    want = _numpy_window(li)
+    numpy_s = time.time() - t0
+    n = len(want["rn"])
+    types = ["bigint", "integer", "bigint", "bigint", "bigint",
+             "decimal(38,2)", "decimal(12,2)"]
+
+    def check(batch, what):
+        cols = list(batch.columns.values())
+        if [str(c.type) for c in cols] != types or \
+                not all(c.data.is_cuda for c in cols):
+            raise AssertionError(f"{what}: unexpected window output columns")
+        if batch.num_rows != n:
+            raise AssertionError(f"{what}: {batch.num_rows} rows, not {n}")
+        for name, c in batch.columns.items():
+            if c.validity is not None and not bool(c.validity[:n].all()):
+                raise AssertionError(f"{what}: NULL in {name}")
+            got = c.data[:n].cpu().numpy().astype(np.int64)
+            if not np.array_equal(got, want[name].astype(np.int64)):
+                bad = int(np.argmax(got != want[name]))
+                raise AssertionError(
+                    f"{what}: {name} at row {bad}: {got[bad]} != numpy "
+                    f"{want[name][bad]}")
+
+    engine = Engine(catalog, device="cuda")
+    out = _engine_phase("window", engine, WINDOW_SQL, check,
+                        need=("gather", "scatter", "compact",
+                              "take_along_axis"))
+    run = out["run"]
+    say("window_engine", sf=catalog.sf, lineitem_rows=n,
+        load_seconds=load_s, numpy_seconds=numpy_s, statement=WINDOW_SQL,
+        launches=run["launches"], launches_per_step=run["launches_per_step"],
+        ms_per_run=out["ms"], ms_trials=out["ms_trials"],
+        profile=out["profile"], held_against_plain=out["held"],
+        agrees_with=["numpy int64 exactly (every row of 7 columns)",
+                     "eager == compiled"])
+    return {"launches": run["launches"], "ms_per_run": out["ms"],
+            "profile": out["profile"], "held": out["held"],
+            "take_args": out["take_args"]}
+
+
+def take_times(x, idx, axis: int, copy_rate: float) -> dict:
+    """``take_along_axis`` at one shape, in turns with ``torch.gather`` on
+    the index clamped beforehand (the same function: the wrapper clamps).
+    Bytes: the index once, each distinct source element it names once, the
+    output once."""
+    from presto1_tpu_torch.ops.kernels import gather as G
+
+    n = x.shape[axis]
+    clamped = idx.clamp(0, n - 1).to(torch.int64)
+    distinct = int(torch.unique(clamped.view(-1)).numel()) \
+        if x.shape[1 - axis] == 1 else clamped.numel()
+    nbytes = idx.numel() * (idx.element_size() + x.element_size()) \
+        + distinct * x.element_size()
+    turns = in_turns({"ms": lambda: G.take_along_axis(x, idx, axis),
+                      "library_ms": lambda: torch.gather(x, axis, clamped)})
+    out = {"x": f"{x.dtype}{list(x.shape)}",
+           "idx": f"{idx.dtype}{list(idx.shape)}", "axis": axis,
+           "distinct_elements_read": distinct, **turns,
+           "timed": "ms and library_ms in turns (in_turns)",
+           "plain_ms": device_ms(lambda: G.take_along_axis_plain(x, idx,
+                                                                 axis)),
+           **_bounds(nbytes, idx.numel(), copy_rate),
+           "library_call": "torch.gather on indices already in range"}
+    out["share_of_bound"] = out["bound_ms"] / out["ms"]
+    return out
 
 
 def _bounds(nbytes: int, ops: float, copy_rate: float) -> dict:
@@ -2469,26 +2830,33 @@ def main() -> int:
     q1 = phase_q1_engine(catalog)
     q15 = phase_q15view_engine(catalog)
     q3 = phase_q3_engine(catalog)
+    q7 = phase_q7_engine(catalog)
+    win = phase_window_engine(catalog)
     ds = TpcdsCatalog(sf=1.0, device="cuda")
     q27 = phase_q27_engine(ds)
     q93 = phase_q93_engine(ds)
-    paths = (q1, q15, q3, q27, q93)
+    q98 = phase_q98_engine(ds)
+    paths = (q1, q15, q3, q27, q93, q7, q98, win)
     launches = {k: q6["launches"] if k == "filter_sum"
                 else sum(p["launches"][k] for p in paths)
                 for k in q1["launches"]}
+    held_paths = (("q15_view", q15), ("q3", q3), ("q27", q27), ("q93", q93),
+                  ("q7", q7), ("q98", q98), ("window", win))
     # the main paths' own gather and scatter calls, held against the plain
     # versions in each phase, count in the kernels' measured error
     compact_err = {"max_abs_err": scatter_err["max_abs_err"],
                    "compactions_checked": scatter_err.pop("compactions")}
+    # take_along_axis shares the gather check's shapes (both axes)
+    take_err = {"max_abs_err": gather_err["max_abs_err"]}
     for held_err, name in ((gather_err, "gather_rows"),
                            (scatter_err, "scatter_distinct"),
-                           (compact_err, "compact")):
+                           (compact_err, "compact"),
+                           (take_err, "take_along_axis")):
         held_err["max_abs_err"] = max(
             [held_err["max_abs_err"]]
-            + [p["held"][name]["max_abs_err"] for p in (q15, q3, q27, q93)])
+            + [p["held"][name]["max_abs_err"] for _, p in held_paths])
         held_err["held_at_main_path_calls"] = {
-            q: p["held"][name]["calls_held"] for q, p in
-            (("q15_view", q15), ("q3", q3), ("q27", q27), ("q93", q93))}
+            q: p["held"][name]["calls_held"] for q, p in held_paths}
 
     from presto1_tpu_torch.ops.kernels import dyncopy as DC
 
@@ -2538,6 +2906,8 @@ def main() -> int:
                                         for a, b in zip(got, want)])
     dyncopy_q27 = dyncopy_times(union_cols, union_counts, union_cap,
                                 copy_rate)
+    table, ends = win["take_args"]  # the window reads along axis 0
+    take_window = take_times(table, ends, 0, copy_rate)
     dyncopy_fact = dyncopy_times(*dyncopy_err.pop("fact_args"), copy_rate)
 
     def entry(name, replaces, launches_n, err_info, at, source=None,
@@ -2625,6 +2995,17 @@ def main() -> int:
               "as the engine hands the parts over",
         at_engine_shape=dyncopy_q27,
         at_union_all_2880404_plus_1441548_rows_8_int64=dyncopy_fact))
+    kernels.append(entry(
+        "take_along_axis",
+        "experiments/pallas_primitives2.py:227, "
+        "experiments/pallas_primitives3.py:33",
+        launches["take_along_axis"],
+        {k: take_err[k] for k in ("max_abs_err", "held_at_main_path_calls")},
+        take_window, source="gather",
+        shape="the window statement's sliding min at SF1: both ends of "
+              "every frame read from the doubling table of lineitem's "
+              "extended prices in one call",
+        at_engine_shape=take_window))
     for k in kernels:
         if not isinstance(k["max_abs_err"], (int, float)) \
                 or k["max_abs_err"] != 0:
@@ -2646,19 +3027,24 @@ def main() -> int:
                                         ("q3", gather_q3),
                                         ("q27", gather_q27),
                                         ("q93", gather_q93))},
+        q7_ms_per_run=q7["ms_per_run"], q98_ms_per_run=q98["ms_per_run"],
+        window_ms_per_run=win["ms_per_run"],
+        window_take_along_axis_ms=take_window["ms"],
         launches_by_path={k: p["launches"] for k, p in (
             ("q1", q1), ("q15_view", q15), ("q3", q3), ("q27", q27),
-            ("q93", q93))},
+            ("q93", q93), ("q7", q7), ("q98", q98), ("window", win))},
         q15view_largest_compaction_ms=compact_q15["ms"],
         q3_largest_scatter_ms=scatter_q3["ms"],
         device_ms_per_run={k: p["profile"].get("device_ms_per_run")
                            for k, p in (("q1", q1), ("q15_view", q15),
                                         ("q3", q3), ("q27", q27),
-                                        ("q93", q93))},
+                                        ("q93", q93), ("q7", q7),
+                                        ("q98", q98), ("window", win))},
         kernels_per_run={k: p["profile"].get("kernels_per_run")
                          for k, p in (("q1", q1), ("q15_view", q15),
                                       ("q3", q3), ("q27", q27),
-                                      ("q93", q93))})
+                                      ("q93", q93), ("q7", q7),
+                                      ("q98", q98), ("window", win))})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": device["kind"],

@@ -33,7 +33,8 @@ the device.
 
 The port executes Output, SingleRow, Scan, Filter, Project, Limit,
 Aggregate (grouped or not; spilling is ROADMAP A9), Sort, Join (every kind;
-the spilled grace join is ROADMAP A9) and Union; the other plan nodes raise
+the spilled grace join is ROADMAP A9), Union and WindowNode
+(``ops/window.py``); the other plan nodes raise
 ``NotImplementedError`` naming the ROADMAP item that brings them
 (``_LATER_NODES``).
 """
@@ -75,8 +76,8 @@ class ExecError(Exception):
 
 # plan nodes later slices bring, by ROADMAP item
 _LATER_NODES = {
-    "WindowNode": "ROADMAP A9", "Unnest": "ROADMAP A9",
-    "MarkDistinct": "ROADMAP A9", "MergeSorted": "ROADMAP A9",
+    "Unnest": "ROADMAP A9.4", "MarkDistinct": "ROADMAP A9.4",
+    "MergeSorted": "ROADMAP A9.4",
 }
 
 
@@ -842,6 +843,29 @@ class Executor:
                               ).to(self.device))
             out[sym] = (dictionary, remaps)
         return out
+
+    def _x_WindowNode(self, node: WindowNode, path: Path) -> RecordBatch:
+        from ..ops.window import WindowCall, window
+
+        child = self.execute(node.child, path + (0,))
+
+        def ev(e, slot):
+            return eval_expr(self._bind(e, child, path, slot), child)
+
+        pcols = [ev(e, f"part{i}") for i, e in enumerate(node.partition_by)]
+        ranges = self._ranges(path, "ranges", pcols, child.num_rows) \
+            if pcols else []
+        okeys = [SortKey(ev(e, f"order{i}"), asc, nf)
+                 for i, (e, asc, nf) in enumerate(node.order_by)]
+        calls = [
+            WindowCall(c.fn, None if c.arg is None else ev(c.arg, f"arg{j}"),
+                       c.symbol, c.type, frame=c.frame,
+                       default=None if c.default is None
+                       else ev(c.default, f"default{j}"),
+                       param=c.param)
+            for j, c in enumerate(node.calls)
+        ]
+        return window(child, pcols, ranges, okeys, calls)
 
     def _x_Union(self, node: Union, path: Path) -> RecordBatch:
         parts = [self.execute(c, path + (i,))

@@ -41,9 +41,6 @@ from .ir import Call, ColumnRef, DictLookup, Expr, Lambda, Literal, walk
 
 # Internal value: (data: tensor (0-d for constants), validity: tensor | None)
 
-# Functions of the reference evaluator that later slices port, by the
-# ROADMAP item that carries them; anything else is unknown to both.
-_LATER = "ROADMAP A9"
 
 
 def _device_of(batch: RecordBatch):
@@ -160,7 +157,8 @@ def _eval(expr: Expr, batch: RecordBatch):
         c = batch[expr.name]
         if c.lengths is not None:
             raise NotImplementedError(
-                f"nested column {expr.name!r} in an expression ({_LATER})")
+                f"nested column {expr.name!r} in an expression "
+                f"(ROADMAP A9.3: arrays and maps)")
         return c.data, c.validity, c.dictionary
     if isinstance(expr, DictLookup):
         c = batch[expr.column.name]
@@ -297,12 +295,344 @@ def _eval_call(expr: Call, batch: RecordBatch):
         a, va, _ = _eval(expr.args[0], batch)
         return _norm(torch.abs(a), va), va, None
 
+    if fn.startswith("extract_") or fn in ("date_trunc", "date_add",
+                                          "date_diff"):
+        return _eval_datetime(expr, batch)
+
+    if fn in _NUMERIC_FNS:
+        return _eval_numeric(expr, batch)
+
+    if fn in _LATER_FNS:
+        raise NotImplementedError(
+            f"function {fn} is not in this slice of the port "
+            f"({_LATER_FNS[fn]})")
     if fn in ("like", "substring", "||"):
         raise TypeError(
             f"string op '{fn}' reached device evaluation -- run bind_string_ops first"
         )
-    raise NotImplementedError(
-        f"function {fn} is not in this slice of the port ({_LATER})")
+    raise NotImplementedError(f"function {fn}")
+
+
+# Functions of the reference evaluator that later slices port, by the
+# ROADMAP item that carries them.
+_LATER_FNS = {
+    **{f: "ROADMAP A9.3: arrays and maps" for f in (
+        "array_ctor", "cardinality", "element_at", "contains",
+        "array_position", "array_min", "array_max", "transform", "filter",
+        "any_match", "all_match", "none_match", "map", "map_keys",
+        "map_values", "array_concat")},
+    **{f: "ROADMAP A9.3: HLL device hashes" for f in (
+        "__hll_hash", "__hll_reg", "__hll_rho")},
+    "__mask": "ROADMAP A9.4: MarkDistinct",
+}
+
+_MICROS = {"millisecond": 1_000, "second": 1_000_000,
+           "minute": 60_000_000, "hour": 3_600_000_000}
+
+
+def _fdiv(a, b):
+    """Floor division (Python's ``//``), also for negative day numbers."""
+    return torch.div(a, b, rounding_mode="floor")
+
+
+def _eval_datetime(expr: Call, batch: RecordBatch):
+    """``extract_*``, ``date_trunc``, ``date_add`` and ``date_diff`` over
+    dates (int32 days) and timestamps (int64 micros; a timestamptz column
+    reads its civil fields in its zone).  Every value is widened to int64
+    before the civil arithmetic."""
+    from ..types import MICROS_PER_DAY
+
+    fn = expr.fn
+    if fn.startswith("extract_"):
+        raw, va, _ = _eval(expr.args[0], batch)
+        raw = raw.to(torch.int64)
+        kind = expr.args[0].type.kind
+        if kind == "timestamptz":  # civil fields read in the zone
+            raw = raw + expr.args[0].type.offset_micros
+        if kind in ("timestamp", "timestamptz"):
+            days = _fdiv(raw, MICROS_PER_DAY)
+            tod = raw - days * MICROS_PER_DAY  # micros within the day
+        else:
+            days, tod = raw, None
+        field = fn[len("extract_"):]
+        if field in ("hour", "minute", "second", "millisecond"):
+            if tod is None:
+                tod = torch.zeros_like(days)
+            if field == "hour":
+                out = _fdiv(tod, 3_600_000_000)
+            elif field == "minute":
+                out = torch.remainder(_fdiv(tod, 60_000_000), 60)
+            elif field == "second":
+                out = torch.remainder(_fdiv(tod, 1_000_000), 60)
+            else:
+                out = torch.remainder(_fdiv(tod, 1_000), 1000)
+            return _norm(out, va), va, None
+        y, m, dom = _civil_full(days)
+        if field == "year":
+            out = y
+        elif field == "month":
+            out = m
+        elif field == "day":
+            out = dom
+        elif field == "quarter":
+            out = _fdiv(m - 1, 3) + 1
+        elif field in ("dow", "day_of_week"):  # ISO: 1=Monday..7=Sunday
+            out = torch.remainder(days + 3, 7) + 1
+        elif field in ("doy", "day_of_year", "week", "week_of_year"):
+            one = torch.ones_like(m)
+            doy = days - _days_from_civil(y, one, one) + 1
+            if field in ("doy", "day_of_year"):
+                out = doy
+            else:  # ISO week number
+                dow = torch.remainder(days + 3, 7) + 1
+                wk = _fdiv(doy - dow + 10, 7)
+                out = torch.where(wk < 1, _weeks_in(y - 1),
+                                  torch.where(wk > _weeks_in(y), 1, wk))
+        else:
+            raise NotImplementedError(f"extract({field})")
+        return _norm(out.to(torch.int64), va), va, None
+
+    unit = expr.args[0].value  # a constant varchar
+    if fn == "date_trunc":
+        raw, va, _ = _eval(expr.args[1], batch)
+        raw = raw.to(torch.int64)
+        tkind = expr.args[1].type.kind
+        is_ts = tkind in ("timestamp", "timestamptz")
+        # truncate in the zone's civil frame, then shift back to UTC
+        off = (expr.args[1].type.offset_micros
+               if tkind == "timestamptz" else 0)
+        raw = raw + off
+        if is_ts and unit in _MICROS:
+            step = _MICROS[unit]
+            return _norm(_fdiv(raw, step) * step - off, va), va, None
+        days = _fdiv(raw, MICROS_PER_DAY) if is_ts else raw
+        y, m, _ = _civil_full(days)
+        one = torch.ones_like(m)
+        if unit == "day":
+            out = days
+        elif unit == "week":  # Monday
+            out = days - torch.remainder(days + 3, 7)
+        elif unit == "month":
+            out = _days_from_civil(y, m, one)
+        elif unit == "quarter":
+            out = _days_from_civil(y, _fdiv(m - 1, 3) * 3 + 1, one)
+        elif unit == "year":
+            out = _days_from_civil(y, one, one)
+        else:
+            raise NotImplementedError(f"date_trunc({unit})")
+        if is_ts:
+            return _norm(out * MICROS_PER_DAY - off, va), va, None
+        return _norm(out.to(torch.int32), va), va, None
+
+    if fn == "date_add":
+        n, vn, _ = _eval(expr.args[1], batch)
+        raw, va, _ = _eval(expr.args[2], batch)
+        raw = raw.to(torch.int64)
+        n = n.to(torch.int64)
+        is_ts = expr.args[2].type.kind == "timestamp"
+        v = _and_validity(vn, va)
+        if is_ts and unit in _MICROS:
+            return _norm(raw + n * _MICROS[unit], v), v, None
+        if is_ts:
+            days = _fdiv(raw, MICROS_PER_DAY)
+            tod = raw - days * MICROS_PER_DAY
+        else:
+            days, tod = raw, None
+        if unit == "day":
+            out = days + n
+        elif unit == "week":
+            out = days + 7 * n
+        elif unit in ("month", "year"):
+            y, m, dom = _civil_full(days)
+            months = y * 12 + (m - 1) + (n if unit == "month" else 12 * n)
+            y2 = _fdiv(months, 12)
+            m2 = months - y2 * 12 + 1
+            # clamp the day to the target month's length
+            last = _days_from_civil(
+                torch.where(m2 == 12, y2 + 1, y2),
+                torch.where(m2 == 12, 1, m2 + 1),
+                torch.ones_like(m2)) - 1
+            out = torch.minimum(_days_from_civil(y2, m2, dom), last)
+        else:
+            raise NotImplementedError(f"date_add({unit})")
+        if is_ts:
+            return _norm(out * MICROS_PER_DAY + tod, v), v, None
+        return _norm(out.to(torch.int32), v), v, None
+
+    # date_diff
+    a, va, _ = _eval(expr.args[1], batch)
+    b, vb, _ = _eval(expr.args[2], batch)
+    a = a.to(torch.int64)
+    b = b.to(torch.int64)
+    ta = expr.args[1].type.kind
+    tb = expr.args[2].type.kind
+    v = _and_validity(va, vb)
+    if "timestamp" in (ta, tb):
+        ua = a * MICROS_PER_DAY if ta == "date" else a
+        ub = b * MICROS_PER_DAY if tb == "date" else b
+        if unit in _MICROS:
+            return _norm(_fdiv(ub - ua, _MICROS[unit]), v), v, None
+        a = _fdiv(ua, MICROS_PER_DAY)
+        b = _fdiv(ub, MICROS_PER_DAY)
+    if unit == "day":
+        out = b - a
+    elif unit == "week":
+        out = _fdiv(b - a, 7)
+    elif unit in ("month", "year"):
+        y1, m1, d1 = _civil_full(a)
+        y2, m2, d2 = _civil_full(b)
+        months = (y2 * 12 + m2) - (y1 * 12 + m1) - (d2 < d1).to(torch.int64)
+        out = months if unit == "month" else _fdiv(months, 12)
+    else:
+        raise NotImplementedError(f"date_diff({unit})")
+    return _norm(out.to(torch.int64), v), v, None
+
+
+def _weeks_in(y):
+    """ISO weeks (52 or 53) of year ``y``."""
+    p = torch.remainder(y + _fdiv(y, 4) - _fdiv(y, 100) + _fdiv(y, 400), 7)
+    py = y - 1
+    pp = torch.remainder(py + _fdiv(py, 4) - _fdiv(py, 100)
+                         + _fdiv(py, 400), 7)
+    return 52 + ((p == 4) | (pp == 3)).to(torch.int64)
+
+
+def _civil_full(days):
+    """days-since-epoch -> (year, month, day-of-month), int64; Howard
+    Hinnant's civil_from_days."""
+    z = days.to(torch.int64) + 719468
+    era = _fdiv(z, 146097)
+    doe = z - era * 146097
+    yoe = _fdiv(doe - _fdiv(doe, 1460) + _fdiv(doe, 36524)
+                - _fdiv(doe, 146096), 365)
+    y = yoe + era * 400
+    doy = doe - (365 * yoe + _fdiv(yoe, 4) - _fdiv(yoe, 100))
+    mp = _fdiv(5 * doy + 2, 153)
+    d = doy - _fdiv(153 * mp + 2, 5) + 1
+    m = torch.where(mp < 10, mp + 3, mp - 9)
+    y = y + (m <= 2).to(torch.int64)
+    return y, m, d
+
+
+def _days_from_civil(y, m, d):
+    """(year, month, day) -> days-since-epoch (Hinnant's days_from_civil)."""
+    y = y - (m <= 2).to(torch.int64)
+    era = _fdiv(y, 400)
+    yoe = y - era * 400
+    mp = torch.where(m > 2, m - 3, m + 9)
+    doy = _fdiv(153 * mp + 2, 5) + d - 1
+    doe = yoe * 365 + _fdiv(yoe, 4) - _fdiv(yoe, 100) + doy
+    return era * 146097 + doe - 719468
+
+
+def _cbrt(x):
+    return torch.sign(x) * torch.abs(x).pow(1.0 / 3.0)
+
+
+_UNARY_DOUBLE = {
+    "sqrt": torch.sqrt, "ln": torch.log, "exp": torch.exp,
+    "log2": torch.log2, "log10": torch.log10, "sin": torch.sin,
+    "cos": torch.cos, "tan": torch.tan, "asin": torch.asin,
+    "acos": torch.acos, "atan": torch.atan, "sinh": torch.sinh,
+    "cosh": torch.cosh, "tanh": torch.tanh, "cbrt": _cbrt,
+    "degrees": torch.rad2deg, "radians": torch.deg2rad,
+    "truncate": torch.trunc, "is_nan": torch.isnan,
+    "is_finite": torch.isfinite, "is_infinite": torch.isinf,
+}
+_NUMERIC_FNS = set(_UNARY_DOUBLE) | {
+    "floor", "ceil", "round", "power", "atan2", "log", "sign", "mod",
+    "nullif", "greatest", "least"}
+
+
+def _eval_numeric(expr: Call, batch: RecordBatch):
+    """The numeric scalar functions.  Decimal inputs keep their scaled
+    integers where the reference does (floor / ceil, round, sign, mod);
+    the transcendental family reads them as doubles."""
+    fn = expr.fn
+    if fn in _UNARY_DOUBLE:
+        a, va, _ = _eval(expr.args[0], batch)
+        out = _UNARY_DOUBLE[fn](_to_double(a, expr.args[0].type))
+        return _norm(out, va), va, None
+
+    if fn in ("floor", "ceil"):
+        a, va, _ = _eval(expr.args[0], batch)
+        t = expr.args[0].type
+        if t.kind == "decimal":
+            s = 10 ** _scale_of(t)
+            out = _fdiv(a, s) if fn == "floor" else -_fdiv(-a, s)
+        elif t.kind == "double":
+            out = torch.floor(a) if fn == "floor" else torch.ceil(a)
+            out = out.to(torch.float64)
+        else:
+            out = a
+        if expr.type.kind == "bigint":
+            out = out.to(torch.int64)
+        return _norm(out, va), va, None
+
+    if fn == "round":
+        a, va, _ = _eval(expr.args[0], batch)
+        t = expr.args[0].type
+        d = int(expr.args[1].value) if len(expr.args) > 1 else 0
+        if t.kind == "decimal":
+            out = _rescale(_rescale(a, _scale_of(t), d), d, _scale_of(t))
+        else:
+            if not a.dtype.is_floating_point:
+                a = a.to(torch.float64)
+            f = 10.0 ** d
+            out = torch.round(a * f) / f
+        return _norm(out, va), va, None
+
+    if fn in ("power", "atan2", "log"):
+        a, va, _ = _eval(expr.args[0], batch)
+        b, vb, _ = _eval(expr.args[1], batch)
+        v = _and_validity(va, vb)
+        x = _to_double(a, expr.args[0].type)
+        y = _to_double(b, expr.args[1].type)
+        if fn == "power":
+            out = torch.pow(x, y)
+        elif fn == "atan2":
+            out = torch.atan2(x, y)
+        else:  # log(base, x): Trino argument order
+            out = torch.log(y) / torch.log(x)
+        return _norm(out, v), v, None
+
+    if fn == "sign":
+        a, va, _ = _eval(expr.args[0], batch)
+        out = torch.sign(a)
+        if a.dtype.is_floating_point:  # sign(NaN) is NaN
+            out = torch.where(torch.isnan(a), a, out)
+        if expr.type.kind == "bigint":
+            out = out.to(torch.int64)
+        return _norm(out, va), va, None
+
+    if fn == "mod":
+        a, b, va, vb, _ = _common_pair(expr.args[0], expr.args[1], batch)
+        v = _and_validity(va, vb)
+        if a.dtype.is_floating_point:
+            out = torch.remainder(a, b)
+        else:
+            # x mod 0 is 0, as in the reference (NULL lanes hold 0);
+            # torch raises on an integer remainder by zero
+            zero = b == 0
+            out = torch.where(zero, torch.zeros_like(a), torch.remainder(
+                a, torch.where(zero, torch.ones_like(b), b)))
+        return _norm(out, v), v, None
+
+    if fn == "nullif":
+        a, va, _ = _eval(expr.args[0], batch)
+        b, vb, _ = _eval_coerced(expr.args[1], batch, expr.args[0].type)
+        eq = torch.eq(*_same_dtype(a, b))
+        validity = (~eq) if va is None else (va & ~eq)
+        return _norm(a, validity), validity, None
+
+    # greatest / least
+    op = torch.maximum if fn == "greatest" else torch.minimum
+    data, validity, _ = _eval_coerced(expr.args[0], batch, expr.type)
+    for arg in expr.args[1:]:
+        d2, v2, _ = _eval_coerced(arg, batch, expr.type)
+        data = op(*_same_dtype(data, d2))
+        validity = _and_validity(validity, v2)
+    return _norm(data, validity), validity, None
 
 
 def _eval_coerced(expr: Expr, batch: RecordBatch, target: SqlType):

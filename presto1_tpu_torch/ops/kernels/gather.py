@@ -43,8 +43,10 @@ import torch
 
 from . import _build
 
-# launches of the CUDA kernels by this module's wrappers (and nothing else)
+# launches of the row body by ``gather_rows`` (and nothing else)
 LAUNCHES = 0
+# launches of the strided body by ``take_along_axis`` (and nothing else)
+TAKE_LAUNCHES = 0
 
 # the geometry of csrc/gather.cu (checked against the library)
 THREADS = 256
@@ -233,7 +235,6 @@ def _launch_strided(srcs, dsts, idx, rows: int, width: int, n: int,
     """One launch of the strided body: ``srcs`` / ``dsts`` are at most
     ``MAX_PAIRS`` contiguous tensors of one element width on ``idx``'s
     device."""
-    global LAUNCHES
     lib = _library()
     dev = idx.device
     count = len(srcs)
@@ -250,7 +251,6 @@ def _launch_strided(srcs, dsts, idx, rows: int, width: int, n: int,
         raise RuntimeError(
             f"gather kernel launch failed: error {err} (count={count}, "
             f"width={srcs[0].element_size()}, rows={rows}, n={n})")
-    LAUNCHES += 1
 
 
 def gather_rows(sources: Sequence[torch.Tensor],
@@ -306,6 +306,7 @@ def take_along_axis(x: torch.Tensor, idx: torch.Tensor,
     """``numpy.take_along_axis(x, clamp(idx), axis)`` for a contiguous 2-D
     ``x`` and a contiguous 2-D int32/int64 ``idx`` that matches ``x`` on the
     other axis."""
+    global TAKE_LAUNCHES
     if not isinstance(x, torch.Tensor) or x.dim() != 2:
         raise ValueError("x: expected a 2-D tensor")
     _check_idx(idx, 2)
@@ -338,4 +339,5 @@ def take_along_axis(x: torch.Tensor, idx: torch.Tensor,
     wx = x.shape[1]
     strides = (width, 1, wx, 0, 1) if axis == 0 else (width, 1, 1, wx, 0)
     _launch_strided([x], [out], idx, rows, width, n, strides)
+    TAKE_LAUNCHES += 1
     return out

@@ -533,6 +533,17 @@ class Parser:
             elif t.kind == "op" and t.value == "||":
                 self.next()
                 left = ast.BinaryOp("||", left, self._multiplicative())
+            elif (t.kind == "ident" and t.value == "at"
+                  and self.peek(1).kind == "ident"
+                  and self.peek(1).value == "time"
+                  and self.peek(2).kind == "ident"
+                  and self.peek(2).value == "zone"):
+                # AT TIME ZONE applies to the whole additive expression
+                # before it: ts + interval '1' hour AT TIME ZONE z is
+                # AtTimeZone(ts + interval)
+                self.next(), self.next(), self.next()
+                zone = self.expect("string").value
+                left = ast.AtTimeZone(left, zone)
             else:
                 return left
 
@@ -543,14 +554,6 @@ class Parser:
             if t.kind == "op" and t.value in ("*", "/", "%"):
                 self.next()
                 left = ast.BinaryOp(t.value, left, self._unary())
-            elif (t.kind == "ident" and t.value == "at"
-                  and self.peek(1).kind == "ident"
-                  and self.peek(1).value == "time"
-                  and self.peek(2).kind == "ident"
-                  and self.peek(2).value == "zone"):
-                self.next(), self.next(), self.next()
-                zone = self.expect("string").value
-                left = ast.AtTimeZone(left, zone)
             else:
                 return left
 

@@ -118,18 +118,27 @@ class TimestampTzType(SqlType):
 
 
 def parse_zone_offset(zone: str) -> int:
-    """'+05:30' / '-08:00' / 'UTC' / 'Z' -> minutes east of UTC."""
+    """'+05:30' / '+0530' / '+05' / '-08:00' / 'UTC' / 'Z' -> minutes east
+    of UTC.  A compact body is HHMM or HH; an offset beyond +-14:00 (the
+    range of the reference's ZoneOffset) is refused."""
     z = zone.strip()
     if z.upper() in ("UTC", "Z", "+00:00", "-00:00", "GMT"):
         return 0
     sign = {"+": 1, "-": -1}.get(z[:1])
     body = z[1:]
-    if sign and (":" in body or body.isdigit()):
+    if ":" in body:
         hh, _, mm = body.partition(":")
-        try:
-            return sign * (int(hh) * 60 + int(mm or "0"))
-        except ValueError:
-            pass
+    elif len(body) == 4:
+        hh, mm = body[:2], body[2:]
+    else:
+        hh, mm = body, "00"
+    if (sign and 1 <= len(hh) <= 2 and len(mm) == 2 and hh.isdigit()
+            and mm.isdigit() and int(mm) < 60):
+        minutes = int(hh) * 60 + int(mm)
+        if minutes > 14 * 60:
+            raise ValueError(
+                f"time zone offset {zone!r} is beyond +-14:00")
+        return sign * minutes
     raise ValueError(
         f"unsupported time zone {zone!r}: fixed offsets ('+05:30') and "
         "UTC only (named DST zones are out of scope, PARITY.md)")

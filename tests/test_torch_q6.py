@@ -348,14 +348,18 @@ def test_routing_goes_through_the_kernel_wrapper(engines, monkeypatch):
         assert bounds.tolist() == [8766, 9131, 5, 7, 2400]
 
 
-@pytest.mark.parametrize("qid,item", [(7, "A9"), (8, "A9"), (9, "A9"),
-                                      (None, "A9")])
-def test_later_plan_nodes_raise(engines, qid, item):
-    """What later slices bring still raises, naming its ROADMAP item: the
-    civil-date functions of Q7-Q9 and window functions."""
+@pytest.mark.parametrize("sql,item", [
+    ("select count(distinct l_partkey), count(distinct l_suppkey) "
+     "from lineitem", "A9.4"),
+    ("select n_name, x from nation cross join unnest(array[1, 2]) as t(x)",
+     "A9.4"),
+    ("select cardinality(array[n_nationkey, 2]) from nation", "A9.3"),
+    ("select approx_distinct(l_partkey) from lineitem", "A9.3"),
+], ids=["mark_distinct", "unnest", "arrays", "hll"])
+def test_later_plan_nodes_raise(engines, sql, item):
+    """What later slices bring still raises, naming its ROADMAP item:
+    MarkDistinct, Unnest, arrays and the HLL device hashes."""
     _, te = engines
-    sql = QUERIES[qid] if qid is not None else (
-        "select n_name, row_number() over (order by n_name) from nation")
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         te.sql(sql)
 

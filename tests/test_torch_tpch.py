@@ -1,11 +1,8 @@
-"""The TPC-H queries the port runs since joins and Union arrived, through the
-port's engine on the CPU, eager and compiled, against the pandas oracle of
-``tests/tpch_oracle.py`` on identical generated data at SF 0.01 (the gate of
-``tests/test_tpch.py``).
+"""All 22 TPC-H queries through the port's engine on the CPU, eager and
+compiled, against the pandas oracle of ``tests/tpch_oracle.py`` on identical
+generated data at SF 0.01 (the gate of ``tests/test_tpch.py``).
 
-Row order exact; floats and decimals to 1e-6 (``compare_frames``).  Q7, Q8
-and Q9 need the civil-date functions (ROADMAP A9) and are not run here; the
-test of what still raises names them.
+Row order exact; floats and decimals to 1e-6 (``compare_frames``).
 """
 
 import pytest
@@ -21,9 +18,6 @@ from tpch_oracle import ORACLE
 
 torch.set_num_threads(1)
 
-LATER = {7, 8, 9}  # EXTRACT(YEAR ...): ROADMAP A9
-
-
 @pytest.fixture(scope="module")
 def env():
     catalog = t_catalog.TpchCatalog("tiny", device="cpu")
@@ -32,7 +26,7 @@ def env():
 
 
 @pytest.mark.parametrize("mode", ["sql", "compiled"])
-@pytest.mark.parametrize("qid", sorted(set(QUERIES) - LATER))
+@pytest.mark.parametrize("qid", sorted(QUERIES))
 def test_tpch_query_matches_oracle(env, qid, mode):
     engine, frames = env
     sql = QUERIES[qid]
