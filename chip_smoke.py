@@ -14,10 +14,16 @@ its plain PyTorch version on the card (integers exactly, float64 sums to
 1e-9 relative), shows from the launch counters that the main paths went
 through them, checks that a compiled run never waits for the host (one run
 of each statement under ``torch.cuda.set_sync_debug_mode("error")``), and
-times kernel, plain version, library call and engine.  Every phase prints
+times kernel, plain version, library call and engine.  Then the bounded
+device-memory paths at SF1: the page-locked PCIe rate, ``query_max_memory``
+around Q1's eager working set, Q1 / Q3 / Q18 spilled through host RAM at a
+16 MiB threshold, ``Engine.compile_grouped`` (Q1 at K = 2, 4, 8, Q6, Q3;
+Q18 refused) from a catalog that never uploads lineitem whole, sampled
+against full discovery, and the compiled Q3's EXPLAIN ANALYZE.  The
+generated TPC-H columns are kept in ``.tpch_cache`` beside this script
+(or ``P1_TPCH_CACHE``).  Every phase prints
 one JSON line; any failed phase raises, and the exit code is then non-zero.  It needs one CUDA device, the
-CUDA toolkit (``nvcc``) and no network.  ``P1_TPCH_CACHE=<dir>`` keeps the
-generated TPC-H columns on disk between runs.
+CUDA toolkit (``nvcc``) and no network.
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``;
@@ -33,6 +39,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import os
 import re
 import statistics
 import subprocess
@@ -1255,13 +1262,7 @@ def _engine_steps(engine, sql: str, check, reps: int) -> dict:
     each step, then one more compiled run with PyTorch's synchronisation
     check set to raise.  ``check(batch)`` holds a result against the host
     reference."""
-    counters = _launch_counters()
-    for m, attr in counters.values():
-        setattr(m, attr, 0)
-
-    def read():
-        return {k: getattr(m, attr) for k, (m, attr) in counters.items()}
-
+    read = _counting()
     marks = [read()]
     eager = engine.sql(sql)
     marks.append(read())
@@ -1287,7 +1288,7 @@ def _engine_steps(engine, sql: str, check, reps: int) -> dict:
                              f"{compiled.num_rows}")
     names = ("sql", "compile", "call", f"block_run_{reps}")
     steps = {k: {s: marks[i + 1][k] - marks[i][k]
-                 for i, s in enumerate(names)} for k in counters}
+                 for i, s in enumerate(names)} for k in marks[0]}
     for k, st in steps.items():
         if st[names[3]] != reps * st["call"]:
             raise AssertionError(
@@ -2174,6 +2175,401 @@ def phase_window_engine(catalog) -> dict:
             "take_args": out["take_args"]}
 
 
+# ------------------------------------------------------------------------
+# Bounded device memory: per-query limits, spilling through host RAM,
+# grouped compiled execution, sampled discovery and EXPLAIN ANALYZE.
+
+SPILL_THRESHOLD = 16 << 20  # bytes: every SF1 join and aggregation below
+# spills into 4 or more partitions
+
+
+def phase_pcie_rate() -> dict:
+    """Page-locked host -> device and device -> host ``copy_`` of 256 MiB,
+    CUDA events: the bound of every spill and every grouped upload."""
+    nbytes = 256 << 20
+    host = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+    host.random_(0, 255)
+    dev = torch.empty(nbytes, dtype=torch.uint8, device="cuda")
+    h2d = time_ms(lambda: dev.copy_(host, non_blocking=True), reps=5,
+                  trials=5)
+    d2h = time_ms(lambda: host.copy_(dev, non_blocking=True), reps=5,
+                  trials=5)
+    out = {"h2d_bytes_per_s": nbytes / (h2d * 1e-3),
+           "d2h_bytes_per_s": nbytes / (d2h * 1e-3)}
+    say("pcie_rate", mib=256, h2d_ms=h2d, d2h_ms=d2h, **out,
+        memory="page-locked host")
+    return out
+
+
+def _rows(batch) -> list:
+    """A batch's live rows as tuples: strings decoded, decimals unscaled."""
+    k = batch.num_rows
+    cols = []
+    for c in batch.columns.values():
+        if c.validity is not None and not bool(c.validity[:k].all()):
+            raise AssertionError("NULL in a checked result")
+        cols.append(list(c.decode(k)) if c.dictionary is not None
+                    else c.data[:k].cpu().tolist())
+    return [tuple(r) for r in zip(*cols)]
+
+
+def _match(got: list, want: list, what: str) -> None:
+    """Row for row: floats to 1e-9 relative, everything else exactly."""
+    if len(got) != len(want):
+        raise AssertionError(f"{what}: {len(got)} rows, expected "
+                             f"{len(want)}")
+    for r, (g, w) in enumerate(zip(got, want)):
+        for j, (a, b) in enumerate(zip(g, w, strict=True)):
+            ok = abs(a - b) <= 1e-9 * abs(b) if isinstance(b, float) \
+                else a == b
+            if not ok:
+                raise AssertionError(f"{what}: row {r} column {j}: {a!r} "
+                                     f"!= {b!r}")
+
+
+def _numpy_q18(li, orders, cust, cdicts) -> list:
+    """TPC-H Q18 over host columns in int64: (c_name, c_custkey,
+    o_orderkey, o_orderdate, o_totalprice, unscaled sum(l_quantity))."""
+    okey = orders["o_orderkey"]
+    sums = np.bincount(li["l_orderkey"], weights=li["l_quantity"],
+                       minlength=int(okey.max()) + 1
+                       ).astype(np.int64)  # exact: every sum < 2**53
+    sel = sums[okey] > 30000  # sum(l_quantity) > 300 at scale 2
+    keys = okey[sel]
+    ckey = orders["o_custkey"][sel]
+    code, _ = _lookup(cust["c_custkey"], cust["c_name"], ckey)
+    names = np.asarray(cdicts["c_name"])[code]
+    odate, total = orders["o_orderdate"][sel], orders["o_totalprice"][sel]
+    top = np.lexsort((odate, -total))[:100]
+    return [(str(names[i]), int(ckey[i]), int(keys[i]), int(odate[i]),
+             int(total[i]), int(sums[keys[i]])) for i in top]
+
+
+def _bounded_references(catalog) -> dict:
+    """numpy answers of TPC-H Q1, Q3, Q6 and Q18 over the catalog's host
+    columns, as the engine's output rows (see ``_rows``)."""
+    li, _, ldicts, _ = _load_columns(
+        catalog, "lineitem", ("l_orderkey", "l_quantity", "l_extendedprice",
+                              "l_discount", "l_tax", "l_returnflag",
+                              "l_linestatus", "l_shipdate"))
+    orders, _, _, _ = _load_columns(
+        catalog, "orders", ("o_orderkey", "o_custkey", "o_orderdate",
+                            "o_shippriority", "o_totalprice"))
+    cust, _, cdicts, _ = _load_columns(
+        catalog, "customer", ("c_custkey", "c_mktsegment", "c_name"))
+    s6, _ = _numpy_q6(li)
+    return {
+        1: _numpy_q1(li, ldicts["l_returnflag"], ldicts["l_linestatus"]),
+        3: _numpy_q3(li, orders, cust,
+                     _code(cdicts["c_mktsegment"], "BUILDING")),
+        6: [(s6,)],
+        18: _numpy_q18(li, orders, cust, cdicts),
+    }
+
+
+def _counting():
+    """Set every launch counter to 0; returns a reader of them."""
+    counters = _launch_counters()
+    for m, attr in counters.values():
+        setattr(m, attr, 0)
+    return lambda: {k: getattr(m, attr) for k, (m, attr) in counters.items()}
+
+
+def phase_memory_limit(catalog) -> None:
+    """``query_max_memory`` on the card: below TPC-H Q1's eager working set
+    ``Engine.sql`` raises ``ExceededMemoryLimitError``; at it, it answers.
+    The accounted peak beside the allocator's for the same statement."""
+    from presto1_tpu_torch.exec.engine import Engine
+    from presto1_tpu_torch.exec.executor import Executor
+    from presto1_tpu_torch.exec.memory import (ExceededMemoryLimitError,
+                                               QueryMemoryContext)
+    from presto1_tpu_torch.exec.session import Session
+    from presto1_tpu_torch.tpch.queries import QUERIES
+
+    sql = QUERIES[1]
+    plan = Engine(catalog, device="cuda").plan(sql)
+    torch.cuda.synchronize()
+    start = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ctx = QueryMemoryContext("q1", max_bytes=None)
+    Executor(catalog, memory=ctx, device="cuda").execute(plan)
+    torch.cuda.synchronize()
+    allocator_peak = torch.cuda.max_memory_allocated() - start
+    limits = {}
+    for limit in (ctx.peak - 1, ctx.peak):
+        s = Session()
+        s.set("query_max_memory", limit)
+        try:
+            rows = Engine(catalog, session=s, device="cuda").sql(sql).num_rows
+            limits[limit] = f"answered {rows} rows"
+        except ExceededMemoryLimitError as e:
+            limits[limit] = f"raised: {e}"
+    if not limits[ctx.peak - 1].startswith("raised") or \
+            not limits[ctx.peak].startswith("answered 4"):
+        raise AssertionError(f"query_max_memory not enforced: {limits}")
+    say("memory_limit", statement="TPC-H Q1 eager", accounted_peak=ctx.peak,
+        allocator_peak_above_start=allocator_peak,
+        allocator_peak=torch.cuda.max_memory_allocated(),
+        resident_before=start,
+        outcome={str(k): v for k, v in limits.items()})
+
+
+def phase_spill_engine(catalog, refs, pcie) -> dict:
+    """Eager ``Engine.sql`` of TPC-H Q1, Q3 and Q18 with a 16 MiB spill
+    threshold: every large aggregation and join partitioned through
+    page-locked host RAM.  Each answer against numpy and the unbounded
+    run; each spilled operator's partitions and bytes; launches by
+    kernel."""
+    from presto1_tpu_torch.exec.engine import Engine
+    from presto1_tpu_torch.exec.session import Session
+    from presto1_tpu_torch.exec.stats import QueryStats
+    from presto1_tpu_torch.sql.logical import Aggregate, Join
+    from presto1_tpu_torch.tpch.queries import QUERIES
+
+    s = Session()
+    s.set("spill_threshold", SPILL_THRESHOLD)
+    engine = Engine(catalog, session=s, device="cuda")
+    plain = Engine(catalog, device="cuda")
+    out, total = {}, {}
+    for q in (1, 3, 18):
+        sql = QUERIES[q]
+        read = _counting()
+        stats = QueryStats()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        got = engine.sql(sql, stats=stats)
+        torch.cuda.synchronize()
+        ms = (time.time() - t0) * 1e3
+        launches = read()
+        _match(_rows(got), refs[q], f"spilled Q{q} vs numpy")
+        _same_batches(got, plain.sql(sql), f"spilled Q{q} vs unbounded")
+        plan = engine.plan(sql)
+        spilled = []
+        for path, op in sorted(stats.operators.items()):
+            if op.spill:
+                node = plan
+                for i in path:
+                    node = node.children[i]
+                what = (f"Join {node.kind}" if isinstance(node, Join)
+                        else f"Aggregate by {','.join(node.group)}"
+                        if isinstance(node, Aggregate) else op.name)
+                spilled.append({"path": list(path), "operator": what,
+                                **op.spill})
+        to_host = sum(x["to_host_bytes"] for x in spilled)
+        from_host = sum(x["from_host_bytes"] for x in spilled)
+        bound_ms = 1e3 * (to_host / pcie["d2h_bytes_per_s"]
+                          + from_host / pcie["h2d_bytes_per_s"])
+        out[q] = {"ms": ms, "spilled": spilled, "to_host_bytes": to_host,
+                  "from_host_bytes": from_host, "pcie_bound_ms": bound_ms,
+                  "launches": launches}
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+    # the operators this phase must have partitioned 4 ways or more
+    q3_join = [x for x in out[3]["spilled"]
+               if x["operator"] == "Join inner" and x["partitions"] >= 4]
+    q18_agg = [x for x in out[18]["spilled"]
+               if x["operator"].startswith("Aggregate by l_orderkey")
+               and x["partitions"] >= 4]
+    if not q3_join or not q18_agg:
+        raise AssertionError("Q3's lineitem join or Q18's group by "
+                             "l_orderkey did not spill 4 ways")
+    for k in ("dense_group_agg", "gather", "compact", "scatter"):
+        if total[k] < 1:
+            raise AssertionError(f"the spill paths never launched {k}")
+    # outside the counted runs: the spilled Q18's gather, scatter and
+    # compaction calls, the largest of each kind, against the plain versions
+    taps = _kernel_taps()
+    with contextlib.ExitStack() as stack:
+        for tap in taps:
+            stack.enter_context(tap)
+        _match(_rows(engine.sql(QUERIES[18])), refs[18], "spilled Q18 "
+               "(tapped)")
+    held = _hold_taps("spilled Q18", taps,
+                      must=["gather_rows", "scatter_distinct", "compact"])
+    say("spill_engine", spill_threshold=SPILL_THRESHOLD, statements=out,
+        held_against_plain=held,
+        agrees_with=["numpy int64 exactly (averages to 1e-9 relative)",
+                     "the unbounded Engine.sql"])
+    return {"launches": total, "statements": out, "held": held}
+
+
+def phase_grouped_engine(fresh, refs, plain) -> dict:
+    """``Engine.compile_grouped`` from a catalog that has never uploaded
+    lineitem whole: TPC-H Q1 at K = 2, 4 and 8, Q6 at K = 8 (each shard's
+    partial through ``filter_sum``), Q3 at K = 4; then the ungrouped
+    compiled Q1 from the same catalog, measured the same way (peak device
+    memory above the phase's start).  Q18 is refused."""
+    from presto1_tpu_torch.exec.engine import Engine
+    from presto1_tpu_torch.ops.kernels import dyncopy as DC
+    from presto1_tpu_torch.tpch.queries import QUERIES
+
+    engine = Engine(fresh, device="cuda")
+    lineitem = fresh.table("lineitem")
+    out, total = {}, {}
+
+    def measured(make, run):
+        torch.cuda.synchronize()
+        start = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        read = _counting()
+        t0 = time.time()
+        q = make()
+        first = run(q)
+        torch.cuda.synchronize()
+        first_s = time.time() - t0
+        launches_first = read()
+        read = _counting()
+        t0 = time.time()
+        again = run(q)
+        torch.cuda.synchronize()
+        ms = (time.time() - t0) * 1e3
+        return q, first, again, {
+            "first_call_s": first_s, "run_ms": ms,
+            "peak_bytes_above_start": torch.cuda.max_memory_allocated()
+            - start, "launches_first_call": launches_first,
+            "launches": read()}
+
+    for q, k in ((1, 2), (1, 4), (1, 8), (6, 8), (3, 4)):
+        gq, first, again, m = measured(
+            lambda: engine.compile_grouped(QUERIES[q], n_groups=k),
+            lambda g: g())
+        for got, what in ((first, "first"), (again, "second")):
+            _match(_rows(got), refs[q], f"grouped Q{q} K={k} ({what} call) "
+                   "vs numpy")
+            # (a grouped count is a final sum, so it carries a validity
+            # mask the unbounded count does not: values are compared)
+            _match(_rows(got), _rows(plain[q]),
+                   f"grouped Q{q} K={k} vs unbounded")
+        if lineitem._cache:
+            raise AssertionError("a grouped query uploaded lineitem whole")
+        # one shard's compiled program never waits for the host
+        cq = next(iter(gq._programs.values()))
+        inputs, ready = gq._upload(0, torch.cuda.Stream())
+        torch.cuda.current_stream().wait_event(ready)
+        cq.inputs = inputs
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            cq._run()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        cq.inputs = None
+        out[f"q{q}_k{k}"] = {"info": dict(gq.info), **m}
+        for name, v in m["launches"].items():
+            total[name] = total.get(name, 0) + v
+    for name in ("dense_group_agg", "filter_sum", "dyncopy"):
+        if total[name] < 1:
+            raise AssertionError(f"grouped runs never launched {name}")
+    if out["q6_k8"]["launches"]["filter_sum"] != 8:
+        raise AssertionError("grouped Q6's shards lost the filter_sum "
+                             f"route: {out['q6_k8']['launches']}")
+    try:
+        engine.compile_grouped(QUERIES[18], n_groups=4)
+        raise AssertionError("grouped Q18 was not refused")
+    except ValueError as e:
+        refused = str(e)
+    # the merge of grouped Q3's partials, as the engine hands them over,
+    # against the plain version
+    with _Tap("concat_rows", [DC]) as tap:
+        engine.compile_grouped(QUERIES[3], n_groups=4)()
+    merge_err = 0.0
+    for _, (size, args, kwargs) in tap.calls.items():
+        for a, b in zip(DC.concat_rows(*args, **kwargs),
+                        DC.concat_rows_plain(*args, **kwargs), strict=True):
+            if not torch.equal(a, b):
+                raise AssertionError("dyncopy disagrees with its plain "
+                                     "version at the grouped merge")
+            merge_err = max(merge_err, _abs_err(a, b))
+    _, first, _, m = measured(lambda: engine.compile(QUERIES[1]),
+                              lambda c: c())
+    _match(_rows(first), refs[1], "ungrouped compiled Q1 vs numpy")
+    out["q1_ungrouped"] = m
+    ratio = out["q1_k8"]["peak_bytes_above_start"] \
+        / m["peak_bytes_above_start"]
+    if ratio > 0.5:
+        raise AssertionError(f"grouped Q1 at K=8 peaks at {ratio:.3f} of "
+                             "the ungrouped compiled Q1")
+    say("grouped_engine", runs=out, q1_k8_peak_over_ungrouped=ratio,
+        q18_refused=refused, merge_max_abs_err=merge_err,
+        merge_calls_held=len(tap.calls),
+        agrees_with=["numpy int64 exactly (averages to 1e-9 relative)",
+                     "the unbounded Engine.sql"])
+    return {"launches": total, "runs": out, "merge_err": merge_err}
+
+
+def phase_sampled_discovery(catalog, refs) -> dict:
+    """``Engine.compile(sql, sample={"lineitem": 3})`` against
+    ``sample=None`` for TPC-H Q1, Q3 and Q18: equal answers (and numpy's),
+    discovery seconds both ways, in turns; one sampled run under the
+    synchronisation check; a deliberately small margin raises
+    ``ExecError``."""
+    from presto1_tpu_torch.exec import sampling
+    from presto1_tpu_torch.exec.engine import Engine
+    from presto1_tpu_torch.exec.executor import CompiledQuery, ExecError
+    from presto1_tpu_torch.tpch.queries import QUERIES
+
+    engine = Engine(catalog, device="cuda")
+    sample = {"lineitem": 3}
+    out = {}
+    for q in (1, 3, 18):
+        sql = QUERIES[q]
+        secs = {"full": [], "sampled": []}
+        for order in (("full", "sampled"), ("sampled", "full")):
+            for how in order:
+                torch.cuda.synchronize()
+                t0 = time.time()
+                cq = engine.compile(sql, sample=None if how == "full"
+                                    else sample)
+                torch.cuda.synchronize()
+                secs[how].append(time.time() - t0)
+                got = cq()
+                _match(_rows(got), refs[q], f"Q{q} discovery {how} vs "
+                       "numpy")
+                if how == "sampled":
+                    torch.cuda.set_sync_debug_mode("error")
+                    try:
+                        cq._run()
+                    finally:
+                        torch.cuda.set_sync_debug_mode(0)
+                    torch.cuda.synchronize()
+                    caps = dict(cq._caps)
+        out[f"q{q}"] = {"discovery_s": secs, "sampled_caps": {
+            "/".join(map(str, p)): c for p, c in caps.items()}}
+    floor = sampling.CAP_FLOOR
+    try:
+        sampling.CAP_FLOOR = 1
+        small = CompiledQuery(catalog, engine.plan(QUERIES[3]),
+                              sample={"lineitem": 64}, sample_margin=0.001,
+                              device="cuda")
+    finally:
+        sampling.CAP_FLOOR = floor
+    try:
+        small()
+        raise AssertionError("an under-extrapolated run did not raise")
+    except ExecError as e:
+        raised = str(e)
+    say("sampled_discovery", sample=sample, statements=out,
+        small_margin_raised=raised,
+        agrees_with=["numpy int64 exactly", "full discovery"])
+    return out
+
+
+def phase_explain_analyze(catalog) -> str:
+    """EXPLAIN ANALYZE of the compiled TPC-H Q3: each fragment's
+    steady-state time between CUDA events, rows and output bytes."""
+    from presto1_tpu_torch.exec.engine import Engine
+    from presto1_tpu_torch.exec.session import Session
+    from presto1_tpu_torch.tpch.queries import QUERIES
+
+    s = Session()
+    s.set("compile_queries", True)
+    text = Engine(catalog, session=s, device="cuda").explain_analyze(
+        QUERIES[3])
+    print(text, flush=True)
+    say("explain_analyze", statement="TPC-H Q3", lines=text.count("\n") + 1)
+    return text
+
+
 def take_times(x, idx, axis: int, copy_rate: float) -> dict:
     """``take_along_axis`` at one shape, in turns with ``torch.gather`` on
     the index clamped beforehand (the same function: the wrapper clamps).
@@ -2825,20 +3221,39 @@ def main() -> int:
     dyncopy_err = phase_kernel_check_dyncopy(gen)
     copy_rate = phase_copy_bandwidth()
     sector_rates = phase_random_sector_rate(gen, sector_lib)
-    catalog = TpchCatalog(sf=1.0, device="cuda")
+    # the generated TPC-H columns go to disk once, so that a second catalog
+    # (the grouped phase's, which must never have uploaded lineitem whole)
+    # reads them back instead of generating them again
+    cache = os.environ.get("P1_TPCH_CACHE") or os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), ".tpch_cache")
+    catalog = TpchCatalog(sf=1.0, device="cuda", cache_dir=cache)
     q6 = phase_q6_engine(catalog)
     q1 = phase_q1_engine(catalog)
     q15 = phase_q15view_engine(catalog)
     q3 = phase_q3_engine(catalog)
     q7 = phase_q7_engine(catalog)
     win = phase_window_engine(catalog)
+    pcie = phase_pcie_rate()
+    refs = _bounded_references(catalog)
+    phase_memory_limit(catalog)
+    spilled = phase_spill_engine(catalog, refs, pcie)
+    from presto1_tpu_torch.exec.engine import Engine
+    from presto1_tpu_torch.tpch.queries import QUERIES
+
+    plain = {q: Engine(catalog, device="cuda").sql(QUERIES[q])
+             for q in (1, 3, 6)}
+    grouped = phase_grouped_engine(
+        TpchCatalog(sf=1.0, device="cuda", cache_dir=cache), refs, plain)
+    del plain
+    sampled = phase_sampled_discovery(catalog, refs)
+    phase_explain_analyze(catalog)
     ds = TpcdsCatalog(sf=1.0, device="cuda")
     q27 = phase_q27_engine(ds)
     q93 = phase_q93_engine(ds)
     q98 = phase_q98_engine(ds)
-    paths = (q1, q15, q3, q27, q93, q7, q98, win)
-    launches = {k: q6["launches"] if k == "filter_sum"
-                else sum(p["launches"][k] for p in paths)
+    paths = (q1, q15, q3, q27, q93, q7, q98, win, spilled, grouped)
+    launches = {k: q6["launches"] * (k == "filter_sum")
+                + sum(p["launches"][k] for p in paths)
                 for k in q1["launches"]}
     held_paths = (("q15_view", q15), ("q3", q3), ("q27", q27), ("q93", q93),
                   ("q7", q7), ("q98", q98), ("window", win))
@@ -3032,7 +3447,13 @@ def main() -> int:
         window_take_along_axis_ms=take_window["ms"],
         launches_by_path={k: p["launches"] for k, p in (
             ("q1", q1), ("q15_view", q15), ("q3", q3), ("q27", q27),
-            ("q93", q93), ("q7", q7), ("q98", q98), ("window", win))},
+            ("q93", q93), ("q7", q7), ("q98", q98), ("window", win),
+            ("spill_q1_q3_q18", spilled), ("grouped", grouped))},
+        pcie_rate=pcie,
+        spill_ms={q: st["ms"] for q, st in spilled["statements"].items()},
+        grouped_peak_bytes={k: r["peak_bytes_above_start"]
+                            for k, r in grouped["runs"].items()},
+        discovery_s={k: r["discovery_s"] for k, r in sampled.items()},
         q15view_largest_compaction_ms=compact_q15["ms"],
         q3_largest_scatter_ms=scatter_q3["ms"],
         device_ms_per_run={k: p["profile"].get("device_ms_per_run")

@@ -56,6 +56,11 @@ class Table:
             self._cache[key] = self._load(name, device)
         return self._cache[key]
 
+    def cached(self, name: str, device) -> Optional[Column]:
+        """The column on ``device`` if it is already there, else None
+        (never uploads)."""
+        return self._cache.get((name, torch.device(device)))
+
     def host_column(self, name: str) -> Column:
         """Column backed by host (numpy) data.  Subclasses with a
         host-native loader override this to avoid a device->host
@@ -229,6 +234,12 @@ class ShardedTable(Table):
         return self.hi - self.lo
 
     def _load(self, column: str, device) -> Column:
+        whole = self.base.cached(column, device)
+        if whole is not None:  # the base column is resident: a view of it
+            return Column(whole.data[self.lo:self.hi], whole.type,
+                          validity=None if whole.validity is None
+                          else whole.validity[self.lo:self.hi],
+                          dictionary=whole.dictionary)
         c = self.host_column(column)
         return Column(to_device(c.data, device), c.type,
                       validity=None if c.validity is None

@@ -32,11 +32,14 @@ dynamic-copy kernel (``ops/kernels/dyncopy.py``), with the part counts on
 the device.
 
 The port executes Output, SingleRow, Scan, Filter, Project, Limit,
-Aggregate (grouped or not; spilling is ROADMAP A9), Sort, Join (every kind;
-the spilled grace join is ROADMAP A9), Union and WindowNode
+Aggregate (grouped or not), Sort, Join (every kind), Union and WindowNode
 (``ops/window.py``); the other plan nodes raise
 ``NotImplementedError`` naming the ROADMAP item that brings them
-(``_LATER_NODES``).
+(``_LATER_NODES``).  In eager mode a grouped Aggregate or an equi-Join whose
+inputs exceed ``spill_threshold`` bytes runs partitioned through host RAM
+(``exec/spill.py``: ``_spilled_aggregate``, ``_grace_join``), and a
+``QueryMemoryContext`` (``exec/memory.py``) accounts every operator's
+output.
 """
 
 from __future__ import annotations
@@ -87,9 +90,20 @@ class Executor:
                  scan_arrays: Optional[Dict[str, torch.Tensor]] = None,
                  stats=None, stubs: Optional[Dict[Path, RecordBatch]] = None,
                  device="cuda", route_kernels: bool = True,
-                 dynamic_filtering: bool = True):
+                 dynamic_filtering: bool = True, memory=None,
+                 spill_threshold: int = 0, guard_ranges: bool = False):
         self.catalog = catalog
         self.compiled = compiled
+        # compiled fragments whose recorded values were extrapolated
+        # (sampled discovery) must guard every data-derived recorded value:
+        # key ranges clamp out-of-range keys silently (distinct groups
+        # would collide), so device-side in-range checks join the
+        # fragment's overflow flags instead
+        self.guard_ranges = guard_ranges
+        self.memory = memory  # QueryMemoryContext (eager mode accounting)
+        # spill: inputs above this byte count run partitioned through host
+        # RAM (eager mode only; 0 = disabled)
+        self.spill_threshold = spill_threshold
         self.dynamic_filtering = dynamic_filtering
         self.device = torch.device(device)
         # False keeps every fragment on the generic operators (tests and
@@ -156,13 +170,30 @@ class Executor:
         """Key ranges: computed+recorded in eager mode, replayed compiled."""
         rec = self._rec(path)
         if self.compiled:
-            return rec[key]
+            r = rec[key]
+            if self.guard_ranges:
+                self._guard_range_cols(cols, num_rows, r)
+            return r
         r = key_ranges(cols, num_rows)
         if key in rec:  # widen across runs
             r = [(min(a[0], b[0]), max(a[1], b[1]))
                  for a, b in zip(r, rec[key])]
         rec[key] = r
         return r
+
+    def _guard_range_cols(self, cols, num_rows, ranges):
+        """Device-side checks that live key values fall inside recorded
+        ranges (out-of-range keys would clamp in pack_key_words and
+        collide); they join the fragment's overflow flags."""
+        for c, (lo, hi) in zip(cols, ranges):
+            live = iota(len(c), c.data.device) < num_rows
+            if c.validity is not None:
+                live = live & c.validity
+            d = c.data.to(torch.int64)
+            amin = torch.amin(torch.where(live, d, INT64_MAX))
+            amax = torch.amax(torch.where(live, d, -INT64_MAX))
+            self.overflow_checks.append(
+                ~torch.any(live) | ((amin >= lo) & (amax <= hi)))
 
     # ---- dispatch
 
@@ -185,7 +216,12 @@ class Executor:
             rows = out.num_rows if isinstance(out.num_rows, int) else int(out.num_rows)
             # cumulative wall time (includes children) -- rendered as such
             self.stats.record(path, kind, "",
-                              _time.time() - t0, rows, out.capacity())
+                              _time.time() - t0, rows, out.capacity(),
+                              spill=self.record.get(path, {}).get("spill"))
+        if self.memory is not None and not self.compiled:
+            from .memory import batch_bytes
+
+            self.memory.set_bytes(path, batch_bytes(out))
         if not self.compiled:
             self.chains[path] = self._derive_chain(node, path)
         if path in self.capture_paths:
@@ -198,6 +234,8 @@ class Executor:
         from . import ordering as O
 
         rec = self.record.get(path) or {}
+        if rec.get("spilled"):
+            return None  # spill partitioning destroyed the input order
 
         def ch(i: int):
             return self.chains.get(path + (i,))
@@ -298,19 +336,24 @@ class Executor:
 
     def _x_Scan(self, node: Scan, path: Path) -> RecordBatch:
         table = self._scan_table(node)
+        rec = self._rec(path)
         if self.compiled:
+            # types and dictionaries as discovery saw them: a compiled run
+            # never touches the catalog's device columns (a grouped query
+            # frees each shard's upload after its run)
             cols = {}
-            for c, sym in node.symbols.items():
-                src = table.column(c, self.device)
+            for sym, (t, dictionary) in rec["columns"].items():
                 # a nullable column keeps its validity (the JAX package's
                 # compiled scan drops it: ROADMAP C)
-                cols[sym] = Column(self.scan_arrays[sym], src.type,
+                cols[sym] = Column(self.scan_arrays[sym], t,
                                    validity=self.scan_arrays.get(
                                        _validity_key(sym)),
-                                   dictionary=src.dictionary)
+                                   dictionary=dictionary)
             return RecordBatch(cols, table.num_rows)
         b = table.batch(list(node.symbols.keys()), self.device)
         cols = {node.symbols[c]: col for c, col in b.columns.items()}
+        rec["columns"] = {sym: (c.type, c.dictionary)
+                          for sym, c in cols.items()}
         return RecordBatch(cols, b.num_rows)
 
     def scan_inputs(self, node: LogicalNode) -> Dict[str, torch.Tensor]:
@@ -377,6 +420,15 @@ class Executor:
         else:
             child = self.execute(child_node, path + (0,))
 
+        if not self.compiled and self.spill_threshold and node.group:
+            from .memory import batch_bytes
+
+            if batch_bytes(child) > self.spill_threshold:
+                # the partition loop takes the only reference to its input,
+                # so the input's device memory is freed once partitioned
+                held, child, below = [child], None, None
+                return self._spilled_aggregate(node, path, held, mask)
+
         aggs = [
             AggSpec(
                 a.fn,
@@ -413,14 +465,7 @@ class Executor:
         if self.compiled:
             max_groups = rec["max_groups"]
         else:
-            # group count can never exceed the product of key-range spans
-            # (tight for enum keys: Q1's 3x2 flags -> 128 slots, not 6M)
-            span_product = 1
-            for lo, hi in ranges:
-                span_product *= (hi - lo + 2)
-                if span_product > child.num_rows:
-                    break
-            max_groups = round_capacity(min(child.num_rows, span_product))
+            max_groups = _group_bound(ranges, child.num_rows)
         out = group_aggregate(keys, aggs, child.num_rows, ranges, max_groups,
                               mask=mask, carry=carry,
                               checks=self.overflow_checks,
@@ -435,10 +480,77 @@ class Executor:
                                     rec.get("max_groups", 0))
         return self._shrink(out)
 
-    def _spilled_aggregate(self, node, path, child, mask):
-        raise NotImplementedError(
-            "spilled aggregation is not in this slice of the port "
-            "(ROADMAP A9)")
+    def _spilled_aggregate(self, node: Aggregate, path: Path,
+                           held: List[RecordBatch], mask) -> RecordBatch:
+        """Partitioned aggregation through host RAM (the
+        SpillableHashAggregationBuilder analog; partitions double as the
+        grouped-execution Lifespan loop -- each group-key partition is
+        aggregated end-to-end independently, outputs are disjoint).  A
+        partition whose key domain is small takes the dense kernel, as an
+        unspilled aggregation would."""
+        from ..ops.filter import compact
+        from .memory import batch_bytes
+        from .spill import choose_partitions, spill_partitions
+
+        rec = self._rec(path)
+        rec["spilled"] = True
+        child = held.pop()
+        if mask is not None:  # materialise the fused filter before split
+            child = self._shrink(compact(child, mask))
+        primary = node.primary or node.group
+        ranges = key_ranges([child[s] for s in primary], child.num_rows)
+        n_parts = choose_partitions(batch_bytes(child), self.spill_threshold)
+        rec["spill_partitions"] = n_parts
+        parts = spill_partitions(child, primary, ranges, n_parts)
+        del child
+        moved = {"to_host_bytes": sum(sp.nbytes() for sp in parts),
+                 "from_host_bytes": 0}
+        outs = []
+        for p, part in enumerate(parts):
+            if p > 0 and part.num_rows == 0:
+                continue
+            d = self._unspill(part, moved)
+            aggs = [
+                AggSpec(a.fn,
+                        None if a.arg is None
+                        else eval_expr(self._bind(a.arg, d, path,
+                                                  f"agg:{a.symbol}"), d),
+                        a.symbol, param=a.param)
+                for a in node.aggs
+            ]
+            keys = [(s, d[s]) for s in primary]
+            carry = [(s, d[s]) for s in node.group if s not in primary]
+            pr = key_ranges([c for _, c in keys], d.num_rows)
+            out = group_aggregate(keys, aggs, d.num_rows, pr,
+                                  _group_bound(pr, d.num_rows), carry=carry,
+                                  checks=self.overflow_checks)
+            outs.append(self._spill(self._shrink(out), moved))
+        return self._spill_done(rec, outs, moved)
+
+    # ---- spill plumbing: what a spilled operator moves over PCIe is kept
+    # in its record ("spill"), and QueryStats shows it per operator
+
+    def _unspill(self, sp, moved: dict) -> RecordBatch:
+        from .spill import unspill
+
+        moved["from_host_bytes"] += sp.nbytes()
+        return unspill(sp, device=self.device)
+
+    @staticmethod
+    def _spill(batch: RecordBatch, moved: dict):
+        from .spill import spill
+
+        sp = spill(batch)
+        moved["to_host_bytes"] += sp.nbytes()
+        return sp
+
+    def _spill_done(self, rec: dict, outs, moved: dict) -> RecordBatch:
+        """The partition outputs back on the device as one batch."""
+        from .spill import concat_spilled
+
+        out = self._shrink(self._unspill(concat_spilled(outs), moved))
+        rec["spill"] = {"partitions": rec["spill_partitions"], **moved}
+        return out
 
     def _range_product_sum(self, node: Aggregate, path: Path,
                            below: RecordBatch, m: "RangeProductSum"
@@ -528,10 +640,29 @@ class Executor:
         right = self.execute(node.right, path + (1,))
         rec = self._rec(path)
 
+        if (not self.compiled and self.spill_threshold
+                and node.kind != "cross" and node.equis):
+            from .memory import batch_bytes
+
+            if batch_bytes(left) + batch_bytes(right) > self.spill_threshold:
+                if probe_mask is not None:
+                    from ..ops.filter import compact
+
+                    left = self._shrink(compact(left, probe_mask))
+                    probe_mask = None
+                # the partition loop takes the only references to its
+                # inputs (see _x_Aggregate)
+                held, left, right, below = [left, right], None, None, None
+                return self._grace_join(node, path, held)
+
         if node.kind == "cross":
             if not self.compiled:
                 rec["scalar_build"] = int(right.num_rows) == 1
             if rec.get("scalar_build"):
+                rn = right.num_rows
+                if self.compiled and self.guard_ranges \
+                        and not isinstance(rn, int):
+                    self.overflow_checks.append(rn == 1)
                 right1 = RecordBatch(
                     {n: c.with_data(
                         c.data[:1],
@@ -548,21 +679,7 @@ class Executor:
             self._check_capacity(out.num_rows, cap)
             return self._shrink(out)
 
-        # materialise key expressions as temp columns
-        lkeys, rkeys = [], []
-        lb, rb = left, right
-        for i, (a, b) in enumerate(node.equis):
-            ln, rn = f"__lk{i}", f"__rk{i}"
-            lb = RecordBatch(
-                {**lb.columns, ln: eval_expr(self._bind(a, left, path, ln),
-                                             left)},
-                lb.num_rows)
-            rb = RecordBatch(
-                {**rb.columns, rn: eval_expr(self._bind(b, right, path, rn),
-                                             right)},
-                rb.num_rows)
-            lkeys.append(ln)
-            rkeys.append(rn)
+        lb, rb, lkeys, rkeys = self._join_keys(node, path, left, right)
         if not lkeys:
             raise ExecError(f"join without equi keys: {node.kind}")
 
@@ -576,6 +693,11 @@ class Executor:
 
         if self.compiled:
             ranges = rec["ranges"]
+            if self.guard_ranges:
+                self._guard_range_cols([lb[k] for k in lkeys], lb.num_rows,
+                                       ranges)
+                self._guard_range_cols([rb[k] for k in rkeys], rb.num_rows,
+                                       ranges)
         else:
             lr = key_ranges([lb[k] for k in lkeys], lb.num_rows)
             rr = key_ranges([rb[k] for k in rkeys], rb.num_rows)
@@ -702,6 +824,26 @@ class Executor:
         out = self._drop_temp(out)
         return self._shrink(out)
 
+    def _join_keys(self, node: Join, path: Path, left: RecordBatch,
+                   right: RecordBatch):
+        """Both sides with their key expressions materialised as temp
+        columns (``__lk{i}`` / ``__rk{i}``), and those columns' names."""
+        lkeys, rkeys = [], []
+        lb, rb = left, right
+        for i, (a, b) in enumerate(node.equis):
+            ln, rn = f"__lk{i}", f"__rk{i}"
+            lb = RecordBatch(
+                {**lb.columns, ln: eval_expr(self._bind(a, left, path, ln),
+                                             left)},
+                lb.num_rows)
+            rb = RecordBatch(
+                {**rb.columns, rn: eval_expr(self._bind(b, right, path, rn),
+                                             right)},
+                rb.num_rows)
+            lkeys.append(ln)
+            rkeys.append(rn)
+        return lb, rb, lkeys, rkeys
+
     def _full_join(self, node, lb, rb, lkeys, rkeys, ranges, residual, rec):
         """FULL OUTER = left-join pairs ++ right rows with no match
         (null-extended on the left side), concatenated by the dynamic-copy
@@ -810,11 +952,99 @@ class Executor:
         self._check_capacity(out.num_rows, cap_f)
         return self._shrink(self._drop_temp(out))
 
-    def _grace_join(self, node: Join, path: Path, left: RecordBatch,
-                    right: RecordBatch) -> RecordBatch:
-        raise NotImplementedError(
-            "the spilled (grace) hash join is not in this slice of the "
-            "port (ROADMAP A9)")
+    def _grace_join(self, node: Join, path: Path,
+                    held: List[RecordBatch]) -> RecordBatch:
+        """Grace hash join through host RAM (the HashBuilderOperator
+        SPILLING_INPUT path, ``operator/HashBuilderOperator.java:155``;
+        spill medium = host RAM over PCIe).
+
+        Both sides hash-partition on the join keys; each partition pair
+        joins independently on the device through the join entry points
+        (``hash_join``, which takes ``merge_join`` where it applies, and
+        ``_full_join``), with inputs and results parked in host RAM,
+        bounding peak device memory to ~1/P of the working set.  Eager
+        (discovery) mode only -- the compiled path assumes resident
+        inputs."""
+        from ..ops.filter import compact
+        from .memory import batch_bytes
+        from .spill import choose_partitions, spill_partitions
+
+        rec = self._rec(path)
+        rec["spilled"] = True
+        left, right = held
+        held.clear()
+        lb, rb, lkeys, rkeys = self._join_keys(node, path, left, right)
+        if node.kind in ("inner", "semi"):
+            # spill mode: apply the domain as a compaction (memory is the
+            # constraint here, and compaction shrinks the partitions)
+            m = self._dynamic_filter(lb, rb, lkeys, rkeys, None)
+            if m is not None and int(torch.sum(m)) < 0.75 * max(
+                    int(lb.num_rows), 1):
+                lb = self._shrink(compact(lb, m))
+        lr = key_ranges([lb[k] for k in lkeys], lb.num_rows)
+        rr = key_ranges([rb[k] for k in rkeys], rb.num_rows)
+        ranges = [(min(a[0], b[0]), max(a[1], b[1]))
+                  for a, b in zip(lr, rr)]
+        residual = None
+        if node.residual is not None:
+            merged = RecordBatch({**lb.columns, **rb.columns}, 0)
+            residual = self._bind(node.residual, merged, path, "residual")
+        total = batch_bytes(lb) + batch_bytes(rb)
+        n_parts = choose_partitions(total, self.spill_threshold)
+        rec["spill_partitions"] = n_parts
+        lparts = spill_partitions(lb, lkeys, ranges, n_parts)
+        rparts = spill_partitions(rb, rkeys, ranges, n_parts)
+        del lb, rb, left, right  # free device inputs before the loop
+        moved = {"to_host_bytes": sum(sp.nbytes() for sp in lparts + rparts),
+                 "from_host_bytes": 0}
+        outs = []
+        for p, (lp, rp) in enumerate(zip(lparts, rparts)):
+            if p > 0:  # partition 0 always runs so the schema exists
+                if node.kind == "full":
+                    if lp.num_rows == 0 and rp.num_rows == 0:
+                        continue
+                elif lp.num_rows == 0:
+                    continue
+                elif rp.num_rows == 0 and node.kind in ("inner", "semi"):
+                    continue
+            ld, rd = self._unspill(lp, moved), self._unspill(rp, moved)
+            if node.kind == "full":
+                out = self._full_join(node, ld, rd, lkeys, rkeys, ranges,
+                                      residual, {})
+            elif node.kind in ("semi", "anti"):
+                cap = round_capacity(max(int(ld.num_rows), 1))
+                if residual is not None:
+                    cap_pairs = round_capacity(max(int(ld.num_rows) * 4, 128))
+                    while True:
+                        st: Dict[str, object] = {}
+                        out = hash_join(ld, rd, lkeys, rkeys, node.kind,
+                                        ranges, cap_pairs, residual=residual,
+                                        stats=st)
+                        if int(st["pairs_total"]) <= cap_pairs:
+                            break
+                        cap_pairs = round_capacity(int(st["pairs_total"]))
+                else:
+                    out = hash_join(ld, rd, lkeys, rkeys, node.kind, ranges,
+                                    cap)
+                out = self._drop_temp(out)
+            else:  # inner / left
+                factor = 1 if node.build_unique else 2
+                cap = round_capacity(max(int(ld.num_rows) * factor, 128))
+                while True:
+                    st = {}
+                    out = hash_join(ld, rd, lkeys, rkeys, node.kind, ranges,
+                                    cap, residual=residual, stats=st,
+                                    build_unique=node.build_unique)
+                    # as in _x_Join: a residual join compacts after its
+                    # expansion, so the pair buffer must have held every pair
+                    need = max(int(out.num_rows),
+                               int(st.get("pairs_total", 0)))
+                    if need <= cap:
+                        break
+                    cap = round_capacity(need)
+                out = self._drop_temp(out)
+            outs.append(self._spill(self._shrink(out), moved))
+        return self._spill_done(rec, outs, moved)
 
     def _drop_temp(self, b: RecordBatch) -> RecordBatch:
         cols = {n: c for n, c in b.columns.items() if not n.startswith("__")}
@@ -933,6 +1163,18 @@ class Executor:
         if node.offset:
             out = _skip_rows(out, node.offset)
         return self._shrink(out)
+
+
+def _group_bound(ranges, num_rows: int) -> int:
+    """Output slots of an eager grouped aggregation: the group count can
+    never exceed the product of the key ranges' spans (tight for enum keys:
+    Q1's 3x2 flags -> 128 slots, not 6M) nor the row count."""
+    span_product = 1
+    for lo, hi in ranges:
+        span_product *= (hi - lo + 2)
+        if span_product > num_rows:
+            break
+    return round_capacity(min(num_rows, span_product))
 
 
 def _validity_key(sym: str) -> str:
@@ -1142,35 +1384,59 @@ class CompiledQuery:
                  sample: Optional[Dict[str, int]] = None,
                  sample_margin: Optional[float] = None,
                  device="cuda", route_kernels: bool = True):
-        """External fragment inputs (``stubs``) and sampled discovery
-        (``sample``) are not in this slice of the port (ROADMAP A8):
-        ``stubs`` raises, ``sample`` is accepted and discovery runs on the
-        full data."""
+        """``sample`` ({table: k}) runs discovery on a 1/k PREFIX of the
+        named tables and extrapolates the recorded capacities and ranges
+        (``exec/sampling.py``): sublinear discovery.  Sampled programs run
+        with every range guarded: growth past any extrapolated value raises
+        ExecError at the readback instead of silently truncating.
+
+        External fragment inputs (``stubs``, the worker's fragment input)
+        are not in this slice of the port (ROADMAP A12) and raise."""
         if stubs:
             raise NotImplementedError(
                 "external fragment inputs are not in this slice of the "
-                "port (ROADMAP A8)")
+                "port (ROADMAP A12)")
         self.catalog = catalog
         self.plan = plan
         self.device = torch.device(device)
         self.route_kernels = route_kernels
+        self.sample = dict(sample) if sample else None
+        # every recorded range checked on the device in each run: on for
+        # extrapolated records (sampled here; grouped execution sets it)
+        self.guard_ranges = bool(self.sample)
 
         roots = sorted(set(_fragment_roots(plan)), key=len, reverse=True) \
             if granularity == "fragment" else [()]
         # discovery (capacity/range recording): the recorded values are
         # data-dependent, and the eager pass runs where the data lives
-        discoverer = Executor(catalog, device=self.device,
+        disc_catalog = catalog
+        if self.sample:
+            from .sampling import sampled_catalog_view
+
+            disc_catalog = sampled_catalog_view(catalog, self.sample)
+        discoverer = Executor(disc_catalog, device=self.device,
                               route_kernels=route_kernels)
         discoverer.capture_paths = set(roots)
         discoverer.execute(plan)
         self.record = discoverer.record
+        # scan inputs stay resident on the device across runs (uploaded
+        # before the record is extrapolated: the range resolver reads the
+        # same cached columns)
+        self.inputs = Executor(catalog, device=self.device).scan_inputs(plan)
         # fragment-boundary capacities from discovery: a selective
         # operator's compiled output otherwise keeps its INPUT-sized
         # buffers (no _shrink when compiled), and every downstream fragment
         # pays the oversize
         self._caps = {r: discoverer.captured[r].capacity() for r in roots}
-        # scan inputs stay resident on the device across runs
-        self.inputs = Executor(catalog, device=self.device).scan_inputs(plan)
+        if self.sample:
+            from .sampling import (DEFAULT_MARGIN, rewrite_record,
+                                   scaled_boundary_caps)
+
+            margin = sample_margin or DEFAULT_MARGIN
+            rewrite_record(plan, self.record, self.sample, catalog,
+                           margin=margin)
+            self._caps = scaled_boundary_caps(plan, self._caps, self.sample,
+                                              margin=margin)
         self._meta: Dict[Path, list] = {}
         for r in roots:
             b = discoverer.captured[r]
@@ -1218,7 +1484,8 @@ class CompiledQuery:
                           record=self.record,
                           scan_arrays=scan_arrays, stubs=stubs,
                           device=self.device,
-                          route_kernels=self.route_kernels)
+                          route_kernels=self.route_kernels,
+                          guard_ranges=self.guard_ranges)
             out = ex.execute(node, path=root)
             # fragment-boundary shrink to the discovered capacity
             # (live rows are a prefix); growth past it trips the
@@ -1256,21 +1523,29 @@ class CompiledQuery:
         callable over eager tensor ops and there is nothing to compile.
         (CUDA-graph capture of a fragment would hang here: ROADMAP A8.)"""
 
+    def _wire(self, results: Dict[Path, tuple], child_roots,
+              consume: bool) -> dict:
+        """A fragment's inputs from its child fragments' results; with
+        ``consume`` the results are dropped once wired in (each fragment
+        output has exactly one consumer, so its device buffers are freed
+        as soon as that consumer holds them)."""
+        frag_inputs = {}
+        for cr in child_roots:
+            data, validity, n, _ = results[cr]
+            for nm, _, _, _ in self._meta[cr]:
+                frag_inputs[_k(cr, nm, "d")] = data[nm]
+                if nm in validity:
+                    frag_inputs[_k(cr, nm, "v")] = validity[nm]
+            frag_inputs[_k(cr, "", "n")] = n
+            if consume:
+                del results[cr]
+        return frag_inputs
+
     def _run(self):
         results: Dict[Path, tuple] = {}
         oks = []
         for root, child_roots, fn in self._stages:
-            frag_inputs = {}
-            for cr in child_roots:
-                data, validity, n, _ = results[cr]
-                for nm, _, _, _ in self._meta[cr]:
-                    frag_inputs[_k(cr, nm, "d")] = data[nm]
-                    if nm in validity:
-                        frag_inputs[_k(cr, nm, "v")] = validity[nm]
-                frag_inputs[_k(cr, "", "n")] = n
-                # each fragment output has exactly one consumer -- free the
-                # device buffers as soon as they are wired in
-                del results[cr]
+            frag_inputs = self._wire(results, child_roots, consume=True)
             out = fn(self.inputs, frag_inputs)
             del frag_inputs
             results[root] = out
@@ -1307,6 +1582,44 @@ class CompiledQuery:
             for (nm, t, dic, _) in self._meta[()]
         }
         return RecordBatch(cols, n)
+
+    def profile(self, reps: int = 5):
+        """Per-fragment operator attribution on the compiled path (the
+        OperatorStats analog, ``operator/OperatorStats.java``): each
+        fragment runs once, then ``reps`` more times between two CUDA
+        events, so the reported wall is that fragment's steady-state time
+        on the device's timeline (on the CPU, where every op finishes
+        before the next starts, the host clock).  Returns
+        ``[(root_path, wall_s, rows, out_bytes), ...]`` in execution
+        order.  Holds every fragment output alive for the walk -- a
+        profiling call, not a production run."""
+        import time as _time
+
+        results: Dict[Path, tuple] = {}
+        out_stats = []
+        for root, child_roots, fn in self._stages:
+            frag_inputs = self._wire(results, child_roots, consume=False)
+            out = fn(self.inputs, frag_inputs)
+            if self.device.type == "cuda":
+                e0 = torch.cuda.Event(enable_timing=True)
+                e1 = torch.cuda.Event(enable_timing=True)
+                e0.record()
+                for _ in range(reps):
+                    out = fn(self.inputs, frag_inputs)
+                e1.record()
+                e1.synchronize()
+                wall = e0.elapsed_time(e1) / 1e3 / reps
+            else:
+                t0 = _time.perf_counter()
+                for _ in range(reps):
+                    out = fn(self.inputs, frag_inputs)
+                wall = (_time.perf_counter() - t0) / reps
+            rows = int(out[2])
+            nbytes = sum(a.numel() * a.element_size()
+                         for a in out[0].values())
+            out_stats.append((root, wall, rows, nbytes))
+            results[root] = out
+        return out_stats
 
     def block_run(self, reps: int = 1):
         """Execute ``reps`` times and block until complete (benchmarking).

@@ -22,6 +22,9 @@ class OperatorStats:
     wall_s: float = 0.0
     output_rows: int = 0
     invocations: int = 0
+    # a spilled operator's partition count and bytes moved over PCIe
+    # (``Executor._spill_done``)
+    spill: Optional[dict] = None
 
 
 @dataclass
@@ -32,11 +35,17 @@ class QueryStats:
     wall_s: float = 0.0
     peak_capacity_rows: int = 0
 
-    def record(self, path, name, detail, wall_s, output_rows, capacity):
+    def record(self, path, name, detail, wall_s, output_rows, capacity,
+               spill=None):
         op = self.operators.setdefault(path, OperatorStats(name, detail))
         op.wall_s += wall_s
         op.output_rows = output_rows
         op.invocations += 1
+        if spill is not None:
+            op.spill = dict(spill)
+            op.detail = (f"spilled: {spill['partitions']} partitions, "
+                         f"{spill['to_host_bytes'] / 1e6:.1f} MB to host, "
+                         f"{spill['from_host_bytes'] / 1e6:.1f} MB back")
         self.peak_capacity_rows = max(self.peak_capacity_rows, capacity)
 
     def render(self, plan) -> str:

@@ -365,21 +365,30 @@ def test_later_plan_nodes_raise(engines, sql, item):
 
 
 def test_join_and_grouped_aggregate_raise(engines):
-    """Joins and grouped aggregates run; the spilled forms of both, and
-    external fragment inputs, still raise naming their ROADMAP item."""
+    """Joins and grouped aggregates run, and so do their spilled forms
+    (``_grace_join``, ``_spilled_aggregate``: the same rows, partitioned
+    through host RAM); external fragment inputs still raise naming their
+    ROADMAP item."""
     _, te = engines
-    got = te.sql("select count(*) from lineitem, orders "
-                 "where l_orderkey = o_orderkey")
+    join = ("select count(*) from lineitem, orders "
+            "where l_orderkey = o_orderkey")
+    group = "select l_returnflag, count(*) from lineitem group by l_returnflag"
+    got = te.sql(join)
     assert got.to_pylist() == [(te.catalog.table("lineitem").num_rows,)]
-    got = te.sql("select l_returnflag, count(*) from lineitem "
-                 "group by l_returnflag")
+    got = te.sql(group)
     assert [r[0] for r in got.to_pylist()] == ["A", "N", "R"]
-    ex = t_executor.Executor(te.catalog, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-        ex._spilled_aggregate(None, (), None, None)
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-        ex._grace_join(None, (), None, None)
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
+    for sql, node in ((join, "Join"), (group, "Aggregate")):
+        ex = t_executor.Executor(te.catalog, device="cpu",
+                                 spill_threshold=4096)
+        plan = te.plan(sql)
+        # no ORDER BY: partitions come back in their own order
+        assert sorted(ex.execute(plan).to_pylist()) == \
+            sorted(te.sql(sql).to_pylist())
+        spilled = [p for p, r in ex.record.items() if r.get("spilled")]
+        assert spilled and all(
+            type(t_executor._node_at(plan, p)).__name__ == node
+            for p in spilled)
+    with pytest.raises(NotImplementedError, match="ROADMAP A12"):
         t_executor.CompiledQuery(te.catalog, te.plan(QUERIES[6]),
                                  stubs={(0,): None}, device="cpu")
 

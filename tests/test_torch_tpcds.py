@@ -186,8 +186,9 @@ def test_compiled_run_never_waits_for_the_host(engines, monkeypatch, q):
 
 
 def test_import_with_jax_blocked():
-    """The port, its TPC-DS connector, joins, Union, windows and the
-    dynamic-copy kernel import and run with jax and the reference package
+    """The port, its TPC-DS connector, joins, Union, windows, the
+    dynamic-copy kernel, and memory accounting, spilling, grouped execution
+    and sampled discovery import and run with jax and the reference package
     unimportable."""
     code = (
         "import sys, importlib.abc\n"
@@ -209,6 +210,21 @@ def test_import_with_jax_blocked():
         "assert e.sql(QUERIES[27]).num_rows == 7\n"
         "assert e.compile(QUERIES[93])().num_rows == 100\n"
         "assert e.compile(QUERIES[98])().num_rows == 46\n"
+        "import presto1_tpu_torch.exec.memory\n"
+        "import presto1_tpu_torch.exec.spill\n"
+        "import presto1_tpu_torch.exec.grouped\n"
+        "import presto1_tpu_torch.exec.sampling\n"
+        "from presto1_tpu_torch.exec.catalog import TpchCatalog\n"
+        "from presto1_tpu_torch.exec.session import Session\n"
+        "from presto1_tpu_torch.tpch.queries import QUERIES as H\n"
+        "s = Session()\n"
+        "s.set('spill_threshold', 4096)\n"
+        "s.set('query_max_memory', 1 << 30)\n"
+        "h = Engine(TpchCatalog(sf=0.001, device='cpu'), session=s,\n"
+        "           device='cpu')\n"
+        "assert h.sql(H[3]).num_rows == 10\n"
+        "assert h.compile_grouped(H[1], n_groups=2)().num_rows == 4\n"
+        "assert h.compile(H[3], sample={'lineitem': 4})().num_rows == 10\n"
         "print('clean')\n")
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     out = subprocess.run([sys.executable, "-c", code], cwd=root,
