@@ -19,7 +19,14 @@ device-memory paths at SF1: the page-locked PCIe rate, ``query_max_memory``
 around Q1's eager working set, Q1 / Q3 / Q18 spilled through host RAM at a
 16 MiB threshold, ``Engine.compile_grouped`` (Q1 at K = 2, 4, 8, Q6, Q3;
 Q18 refused) from a catalog that never uploads lineitem whole, sampled
-against full discovery, and the compiled Q3's EXPLAIN ANALYZE.  The
+against full discovery, and the compiled Q3's EXPLAIN ANALYZE.  Then the
+rest of the statement surface over the SF1 lineitem (``statements_engine``):
+three DISTINCT aggregates in one query, approx_distinct of three columns
+globally and by l_returnflag (held against a numpy twin of the sketch),
+UNNEST of a lambda-filtered array, array functions over columns, CREATE
+TABLE AS / INSERT (one refused at its accounted working set less one byte,
+one spilled) / DROP / SHOW over a memory table on the card with Q1 and Q6
+over it, and the system tables.  The
 generated TPC-H columns are kept in ``.tpch_cache`` beside this script
 (or ``P1_TPCH_CACHE``).  Every phase prints
 one JSON line; any failed phase raises, and the exit code is then non-zero.  It needs one CUDA device, the
@@ -60,8 +67,15 @@ FILTER_SUM_OPS_PER_ROW = 18
 Q6_BOUNDS = (8766, 9131, 5, 7, 2400)
 
 
+def _plain(x):
+    """A numpy scalar as its Python value (for ``json.dumps``)."""
+    if isinstance(x, np.generic):
+        return x.item()
+    raise TypeError(f"{type(x).__name__} is not JSON serializable")
+
+
 def say(phase: str, **kv) -> None:
-    print(json.dumps({"phase": phase, **kv}), flush=True)
+    print(json.dumps({"phase": phase, **kv}, default=_plain), flush=True)
 
 
 def time_ms(fn, reps: int = 20, trials: int = 5) -> float:
@@ -1204,13 +1218,16 @@ def _launch_counters() -> dict:
 def _kernel_taps():
     """Taps on ``gather_rows``, ``scatter_distinct``, ``compact`` and
     ``take_along_axis`` in every module of the port that binds them."""
+    from presto1_tpu_torch.exec import executor as X
     from presto1_tpu_torch.ops import common as C, hashagg as H, \
         join as J, segments as SEG, window as W
     from presto1_tpu_torch.ops.kernels import gather as G, scatter as S
 
-    # batch.py looks gather_rows up in G at each call
-    return (_Tap("gather_rows", [G, C, H, SEG, J, W]),
-            _Tap("scatter_distinct", [S, J, W]), _Tap("compact", [S, SEG]),
+    # batch.py looks gather_rows up in G at each call, expr/eval.py
+    # take_along_axis likewise; the executor binds gather_rows (Unnest,
+    # MarkDistinct) and scatter_distinct (MarkDistinct)
+    return (_Tap("gather_rows", [G, C, H, SEG, J, W, X]),
+            _Tap("scatter_distinct", [S, J, W, X]), _Tap("compact", [S, SEG]),
             _Tap("take_along_axis", [G, W]))
 
 
@@ -2280,7 +2297,7 @@ def phase_memory_limit(catalog) -> None:
     ``Engine.sql`` raises ``ExceededMemoryLimitError``; at it, it answers.
     The accounted peak beside the allocator's for the same statement."""
     from presto1_tpu_torch.exec.engine import Engine
-    from presto1_tpu_torch.exec.executor import Executor
+    from presto1_tpu_torch.exec.executor import Executor, _node_at
     from presto1_tpu_torch.exec.memory import (ExceededMemoryLimitError,
                                                QueryMemoryContext)
     from presto1_tpu_torch.exec.session import Session
@@ -2568,6 +2585,347 @@ def phase_explain_analyze(catalog) -> str:
     print(text, flush=True)
     say("explain_analyze", statement="TPC-H Q3", lines=text.count("\n") + 1)
     return text
+
+
+# ------------------------------------------------------------------------
+# The rest of the single-device statement surface: several DISTINCT
+# aggregates (MarkDistinct), approx_distinct (the HLL device hashes), UNNEST
+# over a lambda, array functions over columns, CREATE TABLE AS / INSERT /
+# DROP / SHOW over a memory table, and the system tables.
+
+S1_SQL = ("select l_returnflag, l_linestatus, count(distinct l_partkey), "
+          "count(distinct l_suppkey), count(distinct l_orderkey), count(*) "
+          "from lineitem group by l_returnflag, l_linestatus")
+S2_COLUMNS = ("l_orderkey", "l_partkey", "l_extendedprice")
+S3_SQL = ("select count(*), sum(e), max(e) from lineitem cross join "
+          "unnest(filter(array[l_partkey, l_suppkey, l_orderkey], "
+          "x -> x % 3 = 0)) as t(e)")
+S4_SQL = (
+    "select sum(element_at(array[l_partkey, l_suppkey], "
+    "1 + l_linenumber % 2)), "
+    "sum(case when contains(array[l_partkey, l_suppkey], l_linenumber) "
+    "then 1 else 0 end), "
+    "sum(array_position(array[l_linenumber, l_suppkey % 7, l_partkey % 7], "
+    "3)), "
+    "sum(cardinality(filter(array[l_partkey, l_suppkey, l_orderkey], "
+    "x -> x % 2 = 0))), "
+    "sum(element_at(transform(array[l_partkey, l_suppkey], "
+    "x -> x + l_orderkey), 2)), "
+    "sum(case when any_match(array[l_partkey, l_suppkey], "
+    "x -> x > l_orderkey) then 1 else 0 end) from lineitem")
+COPY_COLUMNS = ("l_orderkey", "l_partkey", "l_quantity", "l_extendedprice",
+                "l_discount", "l_tax", "l_shipdate", "l_returnflag",
+                "l_linestatus")
+CTAS_SQL = ("create table li_copy as select " + ", ".join(COPY_COLUMNS)
+            + " from lineitem")
+INSERT_SQL = ("insert into li_copy select " + ", ".join(COPY_COLUMNS)
+              + " from lineitem where l_shipdate >= date '1998-01-01'")
+# a join, so that the INSERT's query has an operator that spills
+INSERT_JOIN_QUERY = ("select " + ", ".join(COPY_COLUMNS)
+                     + " from lineitem, orders where l_orderkey = o_orderkey"
+                     " and o_orderdate >= date '1998-07-01'")
+HLL_M, HLL_P = 2048, 11
+
+
+def _numpy_splitmix63(v: np.ndarray) -> np.ndarray:
+    """splitmix64's finalizer of int64 values in uint64, masked to 63
+    bits."""
+    with np.errstate(over="ignore"):
+        x = v.astype(np.int64).view(np.uint64)
+        x = (x ^ (x >> np.uint64(30))) * np.uint64(0xBF58476D1CE4E5B9)
+        x = (x ^ (x >> np.uint64(27))) * np.uint64(0x94D049BB133111EB)
+        x = x ^ (x >> np.uint64(31))
+        return (x & np.uint64((1 << 63) - 1)).astype(np.int64)
+
+
+def _numpy_hll(values: np.ndarray, groups: np.ndarray, n_groups: int):
+    """approx_distinct per group as the planner's sketch computes it:
+    2,048 registers of the max leading-zero run, the raw estimator with the
+    linear-counting correction.  Also the exact distinct counts."""
+    h = _numpy_splitmix63(values)
+    reg = h & (HLL_M - 1)
+    w = h >> HLL_P  # < 2**52: exact in a float64, so frexp is its length
+    rho = 64 - np.frexp(w.astype(np.float64))[1].astype(np.int64) - HLL_P
+    key = groups.astype(np.int64) * HLL_M + reg
+    packed = np.unique(key * 64 + rho)  # sorted: a key's max rho is last
+    keys = packed // 64
+    last = np.r_[keys[1:] != keys[:-1], True]
+    keys, rmax = keys[last], packed[last] % 64
+    g = keys // HLL_M
+    alpha = 0.7213 / (1.0 + 1.079 / HLL_M)
+    est, exact = [], []
+    for k in range(n_groups):
+        r = rmax[g == k]
+        v0 = HLL_M - len(r)
+        raw = alpha * HLL_M * HLL_M / (float(np.sum(2.0 ** -r)) + v0)
+        e = HLL_M * np.log(HLL_M / v0) if raw <= 2.5 * HLL_M and v0 > 0 \
+            else raw
+        est.append(int(np.floor(e + 0.5)))
+        exact.append(int(len(np.unique(values[groups == k]))))
+    return est, exact
+
+
+def _distinct_by_group(groups, values, n_groups) -> np.ndarray:
+    u = np.unique(groups.astype(np.int64) * (int(values.max()) + 1)
+                  + values.astype(np.int64))
+    return np.bincount(u // (int(values.max()) + 1), minlength=n_groups)
+
+
+def _table_host(table) -> tuple:
+    cols = {c: table.host_column(c) for c in table.column_order}
+    return ({c: np.asarray(col.data) for c, col in cols.items()},
+            {c: col.validity for c, col in cols.items()},
+            {c: col.dictionary for c, col in cols.items()})
+
+
+def phase_statements_engine(catalog) -> dict:
+    """S1-S6 over the SF1 lineitem: several DISTINCT aggregates, one
+    approx_distinct a statement (globally and by l_returnflag), UNNEST of a
+    filtered array, array functions over columns, CREATE TABLE AS / INSERT
+    (refused at its accounted working set less one byte, then spilled) /
+    DROP / SHOW over a memory table on the card, and the system tables.
+    Every query statement down the main path (eager, compile, ``cq()``,
+    ``block_run``, a compiled run under the synchronisation check), against
+    int64 numpy over the same host columns."""
+    from presto1_tpu_torch.exec.engine import Engine
+    from presto1_tpu_torch.exec.executor import Executor, _node_at
+    from presto1_tpu_torch.exec.memory import (ExceededMemoryLimitError,
+                                               QueryMemoryContext)
+    from presto1_tpu_torch.exec.stats import QueryStats
+    from presto1_tpu_torch.sql.logical import Join
+    from presto1_tpu_torch.tpch.queries import QUERIES
+
+    names = ("l_orderkey", "l_partkey", "l_suppkey", "l_linenumber",
+             "l_quantity", "l_extendedprice", "l_discount", "l_tax",
+             "l_shipdate", "l_returnflag", "l_linestatus")
+    li, _, ldicts, _ = _load_columns(catalog, "lineitem", names)
+    n = len(li["l_orderkey"])
+    engine = Engine(catalog, device=catalog.device)
+    # the engine's sql calls, counted: the statements the system table of
+    # queries has to list
+    plain_sql, ran = engine.sql, [0]
+
+    def counted_sql(*a, **k):
+        ran[0] += 1
+        return plain_sql(*a, **k)
+
+    engine.sql = counted_sql
+    results, launches = {}, {}
+
+    def statement(key, sql, want, need=()):
+        def check(batch, what):
+            got = sorted(_rows(batch))
+            _match(got, sorted(want), f"{key} {what}")
+
+        out = _engine_phase(key, engine, sql, check, need=need)
+        run = out["run"]
+        for k, v in run["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+        results[key] = {"statement": sql, "ms_per_run": out["ms"],
+                        "ms_trials": out["ms_trials"],
+                        "profile": out["profile"],
+                        "launches": run["launches"],
+                        "launches_per_compiled_run": {
+                            k: s["call"]
+                            for k, s in run["launches_per_step"].items()},
+                        "held_against_plain": out["held"]}
+        return out
+
+    # S1: three DISTINCT aggregates and a count, grouped
+    g = li["l_returnflag"].astype(np.int64) * len(ldicts["l_linestatus"]) \
+        + li["l_linestatus"]
+    ng = len(ldicts["l_returnflag"]) * len(ldicts["l_linestatus"])
+    d = {c: _distinct_by_group(g, li[c], ng)
+         for c in ("l_partkey", "l_suppkey", "l_orderkey")}
+    cnt = np.bincount(g, minlength=ng)
+    nls = len(ldicts["l_linestatus"])
+    want = [(str(ldicts["l_returnflag"][k // nls]),
+             str(ldicts["l_linestatus"][k % nls]), int(d["l_partkey"][k]),
+             int(d["l_suppkey"][k]), int(d["l_orderkey"][k]), int(cnt[k]))
+            for k in range(ng) if cnt[k]]
+    statement("S1_distinct", S1_SQL, want, need=("gather", "scatter"))
+
+    # S2: one sketch a statement, globally and grouped by l_returnflag
+    hll = {}
+    rf = li["l_returnflag"]
+    nrf = len(ldicts["l_returnflag"])
+    for col in S2_COLUMNS:
+        est, exact = _numpy_hll(li[col], np.zeros(n, np.int64), 1)
+        gest, gexact = _numpy_hll(li[col], rf, nrf)
+        for e, x in zip(est + gest, exact + gexact):
+            if abs(e - x) > 3 * 1.04 / np.sqrt(HLL_M) * x:
+                raise AssertionError(f"approx_distinct({col}): the numpy "
+                                     f"sketch {e} is off {x} by more than "
+                                     f"3 standard errors")
+        statement(f"S2_approx_{col}",
+                  f"select approx_distinct({col}) from lineitem",
+                  [(est[0],)])
+        present = np.bincount(rf, minlength=nrf) > 0
+        statement(f"S2_approx_{col}_by_flag",
+                  f"select l_returnflag, approx_distinct({col}) from "
+                  "lineitem group by l_returnflag",
+                  [(str(ldicts["l_returnflag"][k]), gest[k])
+                   for k in range(nrf) if present[k]])
+        hll[col] = {"global": {"estimate": est[0], "exact": exact[0]},
+                    "by_l_returnflag": {
+                        str(ldicts["l_returnflag"][k]):
+                        {"estimate": gest[k], "exact": gexact[k]}
+                        for k in range(nrf) if present[k]}}
+
+    # S3: UNNEST of a lambda-filtered array; lengths 0..3 by row
+    v = np.concatenate([li["l_partkey"], li["l_suppkey"], li["l_orderkey"]])
+    v = v[v % 3 == 0].astype(np.int64)
+    statement("S3_unnest", S3_SQL, [(len(v), int(v.sum()), int(v.max()))],
+              need=("gather", "compact"))
+
+    # S4: array functions over columns
+    pk, sk, ok_ = (li[c].astype(np.int64) for c in
+                   ("l_partkey", "l_suppkey", "l_orderkey"))
+    ln = li["l_linenumber"].astype(np.int64)
+    pos = np.where(ln == 3, 1, np.where(sk % 7 == 3, 2,
+                                        np.where(pk % 7 == 3, 3, 0)))
+    want = [(int(np.where(ln % 2 == 0, pk, sk).sum()),
+             int(((pk == ln) | (sk == ln)).sum()), int(pos.sum()),
+             int((pk % 2 == 0).sum() + (sk % 2 == 0).sum()
+                 + (ok_ % 2 == 0).sum()),
+             int((sk + ok_).sum()), int(((pk > ok_) | (sk > ok_)).sum()))]
+    statement("S4_array_functions", S4_SQL, want,
+              need=("gather", "take_along_axis"))
+
+    # S5: writes read back
+    def timed(sql, **kw):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        out = engine.execute_statement(sql, **kw)
+        torch.cuda.synchronize()
+        return out, (time.time() - t0) * 1e3
+
+    def count(table) -> int:
+        return engine.execute_statement(
+            f"select count(*) from {table}").to_pylist()[0][0]
+
+    row_bytes = sum(li[c].itemsize for c in COPY_COLUMNS)
+    out, ctas_ms = timed(CTAS_SQL)
+    table = catalog.table("li_copy")
+    if out.to_pylist() != [(n,)] or count("li_copy") != n:
+        raise AssertionError("CREATE TABLE AS did not store every row")
+    host, valid, dicts = _table_host(table)
+    for c in COPY_COLUMNS:
+        if valid[c] is not None or not np.array_equal(host[c], li[c]) or (
+                (dicts[c] is None) != (ldicts[c] is None)) or (
+                dicts[c] is not None
+                and not np.array_equal(dicts[c], ldicts[c])):
+            raise AssertionError(f"li_copy.{c} is not lineitem's column")
+    ins = li["l_shipdate"] >= _day("1998-01-01")
+    out, insert_ms = timed(INSERT_SQL)
+    inserted = out.to_pylist()[0][0]
+    if inserted != int(ins.sum()) or count("li_copy") != n + inserted:
+        raise AssertionError(f"INSERT returned {inserted} rows; "
+                             f"{count('li_copy') - n} were read back")
+    both = {c: np.concatenate([li[c], li[c][ins]]) for c in COPY_COLUMNS}
+    s6, _ = _numpy_q6(both)
+    statement("S5_q6_li_copy", re.sub(r"\blineitem\b", "li_copy",
+                                      QUERIES[6]), [(s6,)],
+              need=("filter_sum",))
+    statement("S5_q1_li_copy", re.sub(r"\blineitem\b", "li_copy",
+                                      QUERIES[1]),
+              _numpy_q1(both, ldicts["l_returnflag"],
+                        ldicts["l_linestatus"]),
+              need=("dense_group_agg",))
+    # the INSERT's query under its accounted working set less one byte:
+    # refused, the table unchanged; then unlimited, spilled at 16 MiB
+    ctx = QueryMemoryContext("insert", max_bytes=None)
+    Executor(catalog, memory=ctx, device=catalog.device).execute(
+        engine.plan(INSERT_JOIN_QUERY))
+    before = count("li_copy")
+    engine.session.set("query_max_memory", ctx.peak - 1)
+    try:
+        engine.execute_statement(f"insert into li_copy {INSERT_JOIN_QUERY}")
+        raise AssertionError("the INSERT ran above its memory limit")
+    except ExceededMemoryLimitError as e:
+        refused = str(e)
+    finally:
+        engine.session.set("query_max_memory", 0)
+    if count("li_copy") != before:
+        raise AssertionError("a refused INSERT changed the table")
+    orders, _, _, _ = _load_columns(catalog, "orders",
+                                    ("o_orderkey", "o_orderdate"))
+    late = orders["o_orderkey"][orders["o_orderdate"]
+                                >= _day("1998-07-01")]
+    join_rows = int(np.isin(li["l_orderkey"], late).sum())
+    engine.session.set("spill_threshold", SPILL_THRESHOLD)
+    stats = QueryStats()
+    try:
+        out, spilled_insert_ms = timed(
+            f"insert into li_copy {INSERT_JOIN_QUERY}", stats=stats)
+    finally:
+        engine.session.set("spill_threshold", 0)
+    plan = engine.plan(INSERT_JOIN_QUERY)
+    spilled = [{"path": list(p), **op.spill}
+               for p, op in stats.operators.items()
+               if op.spill and isinstance(_node_at(plan, p), Join)]
+    if not spilled or out.to_pylist() != [(join_rows,)] or \
+            count("li_copy") != before + join_rows:
+        raise AssertionError(f"the spilled INSERT: {out.to_pylist()} rows "
+                             f"of {join_rows}, spilled joins {spilled}")
+    engine.execute_statement("drop table li_copy")
+    tables = [r[0] for r in engine.execute_statement("show tables")
+              .to_pylist()]
+    if "li_copy" in tables or "li_copy" in catalog:
+        raise AssertionError("li_copy outlived DROP TABLE")
+    writes = {
+        "ctas": {"ms": ctas_ms, "rows": n, "device_to_host_bytes":
+                 n * row_bytes},
+        "insert_select": {"ms": insert_ms, "rows": inserted,
+                          "device_to_host_bytes": inserted * row_bytes},
+        "insert_refused": {"limit": ctx.peak - 1, "accounted_peak": ctx.peak,
+                           "error": refused},
+        "insert_spilled": {"ms": spilled_insert_ms, "rows": join_rows,
+                           "spill_threshold": SPILL_THRESHOLD,
+                           "spilled_joins": spilled},
+        "row_bytes": row_bytes}
+
+    # S6: the system tables
+    del engine.sql
+    ran = ran[0]
+    q = engine.sql("select count(*) from system.runtime.queries"
+                   ).to_pylist()[0][0]
+    if q != ran + 1:  # the statements above, and this one (running)
+        raise AssertionError(f"system.runtime.queries lists {q} "
+                             f"statements; the phase ran {ran} + 1")
+    nodes = engine.sql("select node_id, device from system.runtime.nodes"
+                       ).to_pylist()
+    name = torch.cuda.get_device_name(0)
+    if len(nodes) != 1 or name not in str(nodes[0][1]):
+        raise AssertionError(f"system.runtime.nodes: {nodes}")
+    mem = engine.sql("select pool, capacity_bytes from "
+                     "system.runtime.memory").to_pylist()
+    total = torch.cuda.mem_get_info()[1]
+    if not any(name in str(p) and c == total for p, c in mem):
+        raise AssertionError(f"system.runtime.memory: {mem}")
+    for k in ("gather", "compact", "scatter", "take_along_axis"):
+        if launches.get(k, 0) < 1:
+            raise AssertionError(f"the statements never launched {k}")
+    held = {}
+    for r in results.values():
+        for k, h in r["held_against_plain"].items():
+            cur = held.setdefault(k, {"calls_held": 0, "max_abs_err": 0.0})
+            cur["calls_held"] += h["calls_held"]
+            cur["max_abs_err"] = max(cur["max_abs_err"], h["max_abs_err"])
+    say("statements_engine", sf=catalog.sf, lineitem_rows=n,
+        statements=results, approx_distinct=hll, writes=writes,
+        system_tables={"queries_listed": q, "sql_calls": ran,
+                       "nodes": [list(map(str, r)) for r in nodes],
+                       "memory": [[str(p), int(c)] for p, c in mem]},
+        launches=launches, held_against_plain=held,
+        agrees_with=["numpy int64 exactly (averages to 1e-9 relative)",
+                     "eager == compiled", "the numpy HLL sketch exactly"])
+    x = torch.stack([catalog.table("lineitem").column(c).data
+                     for c in ("l_partkey", "l_suppkey")], dim=1)
+    at = (catalog.table("lineitem").column("l_linenumber").data % 2
+          ).to(torch.int64)[:, None].contiguous()
+    return {"launches": launches, "held": held, "results": results,
+            "writes": writes, "element_at_args": (x.contiguous(), at)}
 
 
 def take_times(x, idx, axis: int, copy_rate: float) -> dict:
@@ -3247,16 +3605,18 @@ def main() -> int:
     del plain
     sampled = phase_sampled_discovery(catalog, refs)
     phase_explain_analyze(catalog)
+    stm = phase_statements_engine(catalog)
     ds = TpcdsCatalog(sf=1.0, device="cuda")
     q27 = phase_q27_engine(ds)
     q93 = phase_q93_engine(ds)
     q98 = phase_q98_engine(ds)
-    paths = (q1, q15, q3, q27, q93, q7, q98, win, spilled, grouped)
+    paths = (q1, q15, q3, q27, q93, q7, q98, win, spilled, grouped, stm)
     launches = {k: q6["launches"] * (k == "filter_sum")
                 + sum(p["launches"][k] for p in paths)
                 for k in q1["launches"]}
     held_paths = (("q15_view", q15), ("q3", q3), ("q27", q27), ("q93", q93),
-                  ("q7", q7), ("q98", q98), ("window", win))
+                  ("q7", q7), ("q98", q98), ("window", win),
+                  ("statements", stm))
     # the main paths' own gather and scatter calls, held against the plain
     # versions in each phase, count in the kernels' measured error
     compact_err = {"max_abs_err": scatter_err["max_abs_err"],
@@ -3323,6 +3683,8 @@ def main() -> int:
                                 copy_rate)
     table, ends = win["take_args"]  # the window reads along axis 0
     take_window = take_times(table, ends, 0, copy_rate)
+    # element_at's shape: one lane a row of a [6,002,010, 2] int64 matrix
+    take_element_at = take_times(*stm.pop("element_at_args"), 1, copy_rate)
     dyncopy_fact = dyncopy_times(*dyncopy_err.pop("fact_args"), copy_rate)
 
     def entry(name, replaces, launches_n, err_info, at, source=None,
@@ -3420,7 +3782,8 @@ def main() -> int:
         shape="the window statement's sliding min at SF1: both ends of "
               "every frame read from the doubling table of lineitem's "
               "extended prices in one call",
-        at_engine_shape=take_window))
+        at_engine_shape=take_window,
+        at_element_at_shape=take_element_at))
     for k in kernels:
         if not isinstance(k["max_abs_err"], (int, float)) \
                 or k["max_abs_err"] != 0:
@@ -3445,10 +3808,21 @@ def main() -> int:
         q7_ms_per_run=q7["ms_per_run"], q98_ms_per_run=q98["ms_per_run"],
         window_ms_per_run=win["ms_per_run"],
         window_take_along_axis_ms=take_window["ms"],
+        element_at_take_along_axis=take_element_at,
+        statements_ms_per_run={k: r["ms_per_run"]
+                               for k, r in stm["results"].items()},
+        statements_device_ms_per_run={
+            k: r["profile"].get("device_ms_per_run")
+            for k, r in stm["results"].items()},
+        statements_kernels_per_run={
+            k: r["profile"].get("kernels_per_run")
+            for k, r in stm["results"].items()},
+        statements_writes=stm["writes"],
         launches_by_path={k: p["launches"] for k, p in (
             ("q1", q1), ("q15_view", q15), ("q3", q3), ("q27", q27),
             ("q93", q93), ("q7", q7), ("q98", q98), ("window", win),
-            ("spill_q1_q3_q18", spilled), ("grouped", grouped))},
+            ("spill_q1_q3_q18", spilled), ("grouped", grouped),
+            ("statements", stm))},
         pcie_rate=pcie,
         spill_ms={q: st["ms"] for q, st in spilled["statements"].items()},
         grouped_peak_bytes={k: r["peak_bytes_above_start"]
@@ -3466,7 +3840,7 @@ def main() -> int:
                                       ("q3", q3), ("q27", q27),
                                       ("q93", q93), ("q7", q7),
                                       ("q98", q98), ("window", win))})
-    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"kernels": kernels}, default=_plain), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": device["kind"],
         "count": device["count"]}}), flush=True)

@@ -31,12 +31,15 @@ OUTER JOIN copy every part's live prefix to its running offset in the
 dynamic-copy kernel (``ops/kernels/dyncopy.py``), with the part counts on
 the device.
 
-The port executes Output, SingleRow, Scan, Filter, Project, Limit,
-Aggregate (grouped or not), Sort, Join (every kind), Union and WindowNode
-(``ops/window.py``); the other plan nodes raise
-``NotImplementedError`` naming the ROADMAP item that brings them
-(``_LATER_NODES``).  In eager mode a grouped Aggregate or an equi-Join whose
-inputs exceed ``spill_threshold`` bytes runs partitioned through host RAM
+The port executes every plan node of the reference's single-device
+executor: Output, SingleRow, Scan, Filter, Project, Limit, Aggregate
+(grouped or not), Sort, MergeSorted, Join (every kind), Union, WindowNode
+(``ops/window.py``), Unnest and MarkDistinct.  Unnest compacts its live
+lanes with the compaction kernel and repeats its parent rows through one
+gather launch; MarkDistinct's first-occurrence flags return to row order
+through the scatter kernel.  In eager mode a grouped Aggregate or an
+equi-Join whose inputs exceed ``spill_threshold`` bytes runs partitioned
+through host RAM
 (``exec/spill.py``: ``_spilled_aggregate``, ``_grace_join``), and a
 ``QueryMemoryContext`` (``exec/memory.py``) accounts every operator's
 output.
@@ -44,14 +47,15 @@ output.
 
 from __future__ import annotations
 
+from dataclasses import replace
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..batch import (
-    Column, RecordBatch, device_counts, round_capacity, take_clamped,
-    torch_dtype,
+    Column, RecordBatch, device_counts, gather_columns, round_capacity,
+    take_clamped, torch_dtype,
 )
 from ..expr import ir
 from ..expr.eval import (
@@ -63,11 +67,14 @@ from ..ops.common import INT64_MAX, iota, key_ranges
 from ..ops.hashagg import _guard_limb_total
 from ..ops.join import cross_join, hash_join, merge_join_applicable
 from ..ops.kernels.dyncopy import concat_rows
+from ..ops.kernels.gather import gather_rows
+from ..ops.kernels.scatter import scatter_distinct
+from ..ops.segments import compact_indices
 from ..ops.sort import SortKey, limit_batch, sort_batch
 from ..ops.kernels.filter_sum import range_filter_limb_sums
 from ..sql.logical import (
-    Aggregate, Filter, Join, Limit, LogicalNode, Output, Project, Scan,
-    SingleRow, Sort, Union, WindowNode,
+    Aggregate, Filter, Join, Limit, LogicalNode, MarkDistinct, Output,
+    Project, Scan, SingleRow, Sort, Union, Unnest, WindowNode,
 )
 
 Path = Tuple[int, ...]
@@ -75,13 +82,6 @@ Path = Tuple[int, ...]
 
 class ExecError(Exception):
     pass
-
-
-# plan nodes later slices bring, by ROADMAP item
-_LATER_NODES = {
-    "Unnest": "ROADMAP A9.4", "MarkDistinct": "ROADMAP A9.4",
-    "MergeSorted": "ROADMAP A9.4",
-}
 
 
 class Executor:
@@ -203,9 +203,7 @@ class Executor:
         kind = type(node).__name__
         m = getattr(self, f"_x_{kind}", None)
         if m is None:
-            raise NotImplementedError(
-                f"plan node {kind} is not in this slice of the port "
-                f"({_LATER_NODES.get(kind, 'ROADMAP A9')})")
+            raise NotImplementedError(f"plan node {kind}")
         if self.stats is None or self.compiled:
             out = m(node, path)
         else:
@@ -244,6 +242,10 @@ class Executor:
             return O.chain_from_table(self._scan_table(node), node.symbols)
         if isinstance(node, (Filter, Limit)):
             return ch(0)  # stable compaction / prefix keep
+        if isinstance(node, MarkDistinct):
+            return ch(0)  # markers route back to input order
+        if isinstance(node, Unnest):
+            return O.restrict_chain(ch(0), node.schema)
         if isinstance(node, Project):
             return O.project_chain(ch(0), node.outputs)
         if isinstance(node, Join):
@@ -300,7 +302,7 @@ class Executor:
             return out
         if isinstance(node, SingleRow):
             return []
-        return None  # Union, and nodes this slice does not execute
+        return None  # Union, MergeSorted, WindowNode
 
     def _x_Output(self, node: Output, path: Path) -> RecordBatch:
         b = self.execute(node.child, path + (0,))
@@ -386,6 +388,89 @@ class Executor:
         if not self.compiled:
             rec["capacity"] = max(out.capacity(), rec.get("capacity", 0))
         return out
+
+    def _x_Unnest(self, node: Unnest, path: Path) -> RecordBatch:
+        """Array/map expansion (reference ``operator/unnest/``): each
+        input row emits one output row per element.  The live lanes of the
+        ``[n, W]`` element matrix (lane < length AND parent row live)
+        compact in the compaction kernel; the element columns are then read
+        at those flat lanes and the parent columns at lane // W, each in
+        one launch of the gather kernel.  Rows come out in (parent row,
+        lane) order, as the reference's flatten-and-compact gives them."""
+        child = self.execute(node.child, path + (0,))
+        arr = eval_expr(self._bind(node.array, child, path, "array"), child)
+        n = child.capacity()
+        # a zero-width element matrix (``array[]``) has no live lane: it
+        # reads as one lane of length 0
+        w = max(int(arr.data.shape[1]), 1)
+        dev = arr.lengths.device
+        lanes = (torch.arange(w, dtype=torch.int32, device=dev)[None, :]
+                 < arr.lengths[:, None])
+        row_live = iota(n, dev)[:, None] < child.num_rows
+        if arr.validity is not None:
+            row_live = row_live & arr.validity[:, None]
+        mask = (lanes & row_live).reshape(n * w)
+        rec = self._rec(path)
+        # eager: the reference's compact-then-shrink capacity, sized from
+        # the live lane count (one sync) without moving n * W rows
+        cap = rec["capacity"] if self.compiled \
+            else min(n * w, round_capacity(int(torch.sum(mask))))
+        idx, count = compact_indices(mask, cap)
+        t = node.array.type
+        cols = gather_columns(child.columns,
+                              torch.div(idx, w, rounding_mode="floor"))
+        elems = [arr.data]
+        if t.kind == "map" and node.value_symbol:
+            elems.append(arr.map_values)
+        if arr.data.shape[1] == 0:
+            elems = [e.new_zeros((n, 1)) for e in elems]
+        moved = gather_rows([e.reshape(n * w).contiguous() for e in elems],
+                            idx)
+        et = t.key if t.kind == "map" else t.element
+        cols[node.symbol] = Column(moved[0], et, dictionary=arr.dictionary)
+        if len(moved) > 1:
+            cols[node.value_symbol] = Column(moved[1], t.value,
+                                             dictionary=arr.dictionary)
+        out = RecordBatch(cols, count)
+        self._check_capacity(count, cap)
+        out = self._shrink(out)
+        if not self.compiled:
+            rec["capacity"] = max(out.capacity(), rec.get("capacity", 0))
+        return out
+
+    def _x_MarkDistinct(self, node: MarkDistinct, path: Path) -> RecordBatch:
+        """First-occurrence markers per (group keys, marker keys) combo
+        (reference ``operator/MarkDistinctOperator.java``): pack the combo
+        into int64 words, sort the rows stably by the words, flag word
+        boundaries, and scatter the flags back to row order through the
+        permutation (the scatter kernel; the JAX package sorts a second
+        time by row index instead).  Dead rows pack to the INT64_MAX
+        sentinel, so they sort past every live row and can never take a
+        first occurrence from one."""
+        from ..ops.common import pack_key_words, sort_permutation
+        from ..types import BOOLEAN
+
+        child = self.execute(node.child, path + (0,))
+        n = child.capacity()
+        cols = dict(child.columns)
+        gcols = [child[s] for s in node.group]
+        for mi, (msym, keys) in enumerate(node.markers):
+            kcols = gcols + [
+                eval_expr(self._bind(e, child, path, f"marker{mi}:{j}"),
+                          child)
+                for j, e in enumerate(keys)]
+            ranges = self._ranges(path, f"ranges{mi}", kcols,
+                                  child.num_rows)
+            words = pack_key_words(kcols, ranges, child.num_rows)
+            perm = sort_permutation(words)
+            first = None
+            for wd in gather_rows(words, perm):
+                d = torch.ones_like(wd, dtype=torch.bool)
+                d[1:] = wd[1:] != wd[:-1]
+                first = d if first is None else (first | d)
+            flags = scatter_distinct(perm, first.to(torch.int32), n)
+            cols[msym] = Column(flags.to(torch.bool), BOOLEAN)
+        return RecordBatch(cols, child.num_rows)
 
     def _x_Project(self, node: Project, path: Path) -> RecordBatch:
         child = self.execute(node.child, path + (0,))
@@ -1143,6 +1228,16 @@ class Executor:
         self._check_capacity(total, cap)
         return self._shrink(RecordBatch(cols, total))
 
+    def _x_MergeSorted(self, node, path: Path) -> RecordBatch:
+        """Input already globally ordered (an exchange merged per-task
+        sorted runs); only offset/limit apply here."""
+        child = self.execute(node.child, path + (0,))
+        if node.offset:
+            child = _skip_rows(child, node.offset)
+        if node.limit is not None:
+            child = limit_batch(child, node.limit)
+        return self._shrink(child)
+
     def _x_Limit(self, node: Limit, path: Path) -> RecordBatch:
         child = self.execute(node.child, path + (0,))
         if node.offset:
@@ -1179,6 +1274,13 @@ def _group_bound(ranges, num_rows: int) -> int:
 
 def _validity_key(sym: str) -> str:
     return f"{sym}|validity"
+
+
+def _nested_key(sym: str, part: str) -> str:
+    """Where a compiled fragment's output keeps a nested column's
+    ``lengths`` / ``map_values`` (the JAX package's compiled fragments
+    drop them: ROADMAP C13)."""
+    return f"{sym}|{part}"
 
 
 def _skip_rows(batch: RecordBatch, offset: int) -> RecordBatch:
@@ -1477,7 +1579,9 @@ class CompiledQuery:
                     cols[nm] = Column(
                         frag_inputs[_k(cr, nm, "d")], t,
                         validity=frag_inputs.get(_k(cr, nm, "v")),
-                        dictionary=dic)
+                        dictionary=dic,
+                        lengths=frag_inputs.get(_k(cr, nm, "l")),
+                        map_values=frag_inputs.get(_k(cr, nm, "m")))
                 stubs[cr] = RecordBatch(
                     cols, frag_inputs[_k(cr, "", "n")])
             ex = Executor(self.catalog, compiled=True,
@@ -1504,8 +1608,20 @@ class CompiledQuery:
                         if c.validity is not None else None)
                     for n, c in out.columns.items()
                 }
+                for n, c in out.columns.items():
+                    if c.lengths is not None:
+                        cols[n] = replace(
+                            cols[n], lengths=c.lengths[:cap],
+                            map_values=None if c.map_values is None
+                            else c.map_values[:cap])
                 out = RecordBatch(cols, out.num_rows)
+            # a nested column's lengths and map values ride beside its
+            # element matrix (``_nested_key``)
             data = {n: c.data for n, c in out.columns.items()}
+            for n, c in out.columns.items():
+                for part in ("lengths", "map_values"):
+                    if getattr(c, part) is not None:
+                        data[_nested_key(n, part)] = getattr(c, part)
             validity = {n: c.validity
                         for n, c in out.columns.items()
                         if c.validity is not None}
@@ -1536,6 +1652,10 @@ class CompiledQuery:
                 frag_inputs[_k(cr, nm, "d")] = data[nm]
                 if nm in validity:
                     frag_inputs[_k(cr, nm, "v")] = validity[nm]
+                for part, kind in (("lengths", "l"), ("map_values", "m")):
+                    if _nested_key(nm, part) in data:
+                        frag_inputs[_k(cr, nm, kind)] = \
+                            data[_nested_key(nm, part)]
             frag_inputs[_k(cr, "", "n")] = n
             if consume:
                 del results[cr]
@@ -1578,7 +1698,9 @@ class CompiledQuery:
         data, validity, num_rows, oks = self._run()
         n = self._readback(num_rows, oks)
         cols = {
-            nm: Column(data[nm], t, validity=validity.get(nm), dictionary=dic)
+            nm: Column(data[nm], t, validity=validity.get(nm), dictionary=dic,
+                       lengths=data.get(_nested_key(nm, "lengths")),
+                       map_values=data.get(_nested_key(nm, "map_values")))
             for (nm, t, dic, _) in self._meta[()]
         }
         return RecordBatch(cols, n)

@@ -27,7 +27,7 @@ so a partition's rows keep their input order.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
@@ -51,22 +51,34 @@ class SpilledBatch:
     columns: Dict[str, tuple]  # name -> (data, validity|None, dictionary, type)
     num_rows: int
     pinned: bool = False
+    # a nested (array / map) column's other parts: name -> (lengths,
+    # map_values|None); its data is the [n, W] element matrix
+    nested: Dict[str, tuple] = field(default_factory=dict)
 
     def nbytes(self) -> int:
         total = 0
-        for data, valid, _, _ in self.columns.values():
-            for t in (data, valid):
+        parts = [(d, v) for d, v, _, _ in self.columns.values()]
+        parts += list(self.nested.values())
+        for pair in parts:
+            for t in pair:
                 if t is not None:
                     total += t.numel() * t.element_size()
         return total
 
 
-def _flat_columns(batch: RecordBatch) -> Dict[str, Column]:
-    for name, c in batch.columns.items():
-        if c.lengths is not None:
-            raise NotImplementedError(
-                f"spilling nested column {name} (ROADMAP A9.3)")
-    return batch.columns
+def _spilled(cols: Dict[str, Column], n: int, pinned: bool,
+             rows: Optional[int] = None) -> SpilledBatch:
+    """Enqueue host copies of the first ``rows`` (default all) rows of every
+    part of ``cols``."""
+    def host(t):
+        return None if t is None else _to_host(
+            t if rows is None else t[:rows], pinned)
+
+    return SpilledBatch(
+        {name: (host(c.data), host(c.validity), c.dictionary, c.type)
+         for name, c in cols.items()}, n, pinned,
+        {name: (host(c.lengths), host(c.map_values))
+         for name, c in cols.items() if c.lengths is not None})
 
 
 def _to_host(t: torch.Tensor, pinned: bool) -> torch.Tensor:
@@ -90,15 +102,9 @@ def spill(batch: RecordBatch, num_rows: Optional[int] = None) -> SpilledBatch:
     """Copy the live rows of a batch to host memory (device -> host RAM)."""
     n = int(batch.num_rows) if num_rows is None else num_rows
     device = _device_of(batch)
-    pinned = device.type == "cuda"
-    cols = {}
-    for name, c in _flat_columns(batch).items():
-        cols[name] = (_to_host(c.data[:n], pinned),
-                      None if c.validity is None
-                      else _to_host(c.validity[:n], pinned),
-                      c.dictionary, c.type)
+    out = _spilled(batch.columns, n, device.type == "cuda", rows=n)
     _finish(device)
-    return SpilledBatch(cols, n, pinned)
+    return out
 
 
 def unspill(sp: SpilledBatch, capacity: Optional[int] = None,
@@ -120,9 +126,12 @@ def unspill(sp: SpilledBatch, capacity: Optional[int] = None,
 
     cols = {}
     for name, (data, valid, dic, t) in sp.columns.items():
+        lengths, mv = sp.nested.get(name, (None, None))
         cols[name] = Column(up(data), t,
                             validity=None if valid is None else up(valid),
-                            dictionary=dic)
+                            dictionary=dic,
+                            lengths=None if lengths is None else up(lengths),
+                            map_values=None if mv is None else up(mv))
     return RecordBatch(cols, n)
 
 
@@ -134,10 +143,20 @@ def concat_spilled(parts: Sequence[SpilledBatch]) -> SpilledBatch:
 
     def cat(ts):
         rows = sum(t.shape[0] for t in ts)
+        if ts[0].dim() == 2:  # element matrices: pad to the widest
+            w = max(t.shape[1] for t in ts)
+            ts = [t if t.shape[1] == w else torch.cat(
+                [t, t.new_zeros((t.shape[0], w - t.shape[1]))], dim=1)
+                for t in ts]
         out = torch.empty((rows,) + tuple(ts[0].shape[1:]),
                           dtype=ts[0].dtype, pin_memory=pinned)
         return torch.cat(ts, out=out)
 
+    nested = {}
+    for name in parts[0].nested:
+        lens = [p.nested[name][0] for p in parts]
+        mvs = [p.nested[name][1] for p in parts]
+        nested[name] = (cat(lens), None if mvs[0] is None else cat(mvs))
     cols = {}
     for name in names:
         datas, valids = [], []
@@ -154,7 +173,7 @@ def concat_spilled(parts: Sequence[SpilledBatch]) -> SpilledBatch:
             if pdic is not None:
                 dic = pdic  # identical across partitions of one source
         cols[name] = (cat(datas), cat(valids) if has_valid else None, dic, t)
-    return SpilledBatch(cols, sum(p.num_rows for p in parts), pinned)
+    return SpilledBatch(cols, sum(p.num_rows for p in parts), pinned, nested)
 
 
 def choose_partitions(total_bytes: int, threshold: int,
@@ -186,7 +205,7 @@ def spill_partitions(batch: RecordBatch, key_names: Sequence[str], ranges,
     n = batch.capacity()
     device = _device_of(batch)
     pinned = device.type == "cuda"
-    cols = _flat_columns(batch)
+    cols = batch.columns
     live = iota(n, device) < batch.num_rows
     pids = partition_ids([batch[k] for k in key_names], ranges,
                          batch.num_rows, n_partitions)
@@ -196,20 +215,9 @@ def spill_partitions(batch: RecordBatch, key_names: Sequence[str], ranges,
     for p in range(n_partitions):
         c = counts[p]
         if c == 0:
-            part = {name: (torch.empty((0,), dtype=col.data.dtype),
-                           None if col.validity is None
-                           else torch.empty((0,), dtype=torch.bool),
-                           col.dictionary, col.type)
-                    for name, col in cols.items()}
-            out.append(SpilledBatch(part, 0, pinned))
+            out.append(_spilled(cols, 0, pinned, rows=0))
             continue
         idx, _ = compact_indices(pids == p, c)
-        moved = gather_columns(cols, idx)
-        out.append(SpilledBatch(
-            {name: (_to_host(col.data, pinned),
-                    None if col.validity is None
-                    else _to_host(col.validity, pinned),
-                    col.dictionary, col.type)
-             for name, col in moved.items()}, c, pinned))
+        out.append(_spilled(gather_columns(cols, idx), c, pinned))
     _finish(device)
     return out

@@ -960,4 +960,13 @@ def _prune(node: LogicalNode, needed: Set[str]) -> LogicalNode:
                 child_needed |= _refs(e)
         return MarkDistinct(_prune(node.child, child_needed), node.group,
                             node.markers)
+    from .logical import Unnest
+
+    if isinstance(node, Unnest):
+        # the array expression's columns are needed below the expansion
+        # even when nothing above reads them (the JAX package prunes them
+        # away: ROADMAP C11)
+        child_needed = (needed - {node.symbol, node.value_symbol}) \
+            | _refs(node.array)
+        return node.with_children([_prune(node.child, child_needed)])
     return node.with_children([_prune(c, needed) for c in node.children])

@@ -1293,7 +1293,10 @@ class ExprConverter:
                  "array_concat"}
 
     def _c_ArrayLit(self, e) -> ir.Expr:
-        from ..types import ArrayType
+        # common_supertype imported here too: the JAX package's planner
+        # names it without importing it, so mixed element types raise
+        # NameError there (ROADMAP C12)
+        from ..types import ArrayType, common_supertype
 
         items = [self.convert(i) for i in e.items]
         t = items[0].type if items else BIGINT

@@ -11,9 +11,11 @@ import torch
 
 import presto1_tpu.batch as j_batch
 import presto1_tpu.expr.eval as j_eval
+import presto1_tpu.expr.ir as j_ir
 import presto1_tpu.types as j_types
 import presto1_tpu_torch.batch as t_batch
 import presto1_tpu_torch.expr.eval as t_eval
+import presto1_tpu_torch.expr.ir as t_ir
 import presto1_tpu_torch.types as t_types
 from presto1_tpu_torch.testing.parity import (
     batch_from_numpy_parts, batch_to_numpy_parts, column_from_numpy_parts,
@@ -304,13 +306,45 @@ def test_string_folding_and_dict_lookup():
         assert list(jout.decode()) == list(tout.decode())
 
 
+def _later_slice_expr(I, fn):
+    """An expression of ``fn`` over SPEC's columns, built with ``I``."""
+    from presto1_tpu.types import ArrayType as JArray
+    from presto1_tpu_torch.types import ArrayType as TArray
+
+    arr_t = (JArray if I is J else TArray)(I.BIGINT)
+    arr = I.call("array_ctor", I.col("a", I.BIGINT), I.col("b", I.BIGINT),
+                 type=arr_t)
+    if fn == "cardinality":
+        return I.call("cardinality", arr, type=I.BIGINT)
+    if fn == "element_at":
+        return I.call("element_at", arr, I.col("i", I.INTEGER),
+                      type=I.BIGINT)
+    if fn == "transform":
+        ir = j_ir if I is J else t_ir
+        body = I.call("+", I.col("x0", I.BIGINT), I.col("b", I.BIGINT),
+                      type=I.BIGINT)
+        return I.call("transform", arr, ir.Lambda(("x0",), body, arr_t),
+                      type=arr_t)
+    if fn == "__mask":
+        return I.call("__mask", I.col("a", I.BIGINT),
+                      I.call(">", I.col("b", I.BIGINT), I.lit(0),
+                             type=I.BOOLEAN), type=I.BIGINT)
+    return I.call("__hll_hash", I.col("a", I.BIGINT), type=I.BIGINT)
+
+
 @pytest.mark.parametrize("fn", ["cardinality", "element_at", "transform",
                                 "__mask", "__hll_hash"])
 def test_functions_of_later_slices_raise(fn):
-    _, tb = both_batches(SPEC)
-    e = T.call(fn, T.col("a", T.BIGINT), type=T.BIGINT)
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-        t_eval.eval_expr(e, tb)
+    """These functions raised in the port until the slice that ported them
+    (arrays, MarkDistinct's mask, the HLL hashes); they now evaluate as the
+    reference does, nested results included."""
+    jb, tb = both_batches(SPEC)
+    jout = j_eval.eval_expr(_later_slice_expr(J, fn), jb)
+    tout = t_eval.eval_expr(_later_slice_expr(T, fn), tb)
+    assert_columns_equal(jout, tout, what=fn)
+    if fn == "transform":
+        np.testing.assert_array_equal(np.asarray(jout.lengths),
+                                      tout.lengths.numpy())
 
 
 def test_hll_constant_matches():
