@@ -26,7 +26,12 @@ globally and by l_returnflag (held against a numpy twin of the sketch),
 UNNEST of a lambda-filtered array, array functions over columns, CREATE
 TABLE AS / INSERT (one refused at its accounted working set less one byte,
 one spilled) / DROP / SHOW over a memory table on the card with Q1 and Q6
-over it, and the system tables.  The
+over it, and the system tables.  Then the mesh plane (``mesh_engine``) on 8
+logical shards of the card: ``dryrun_q1`` / ``dryrun_join`` at 2^19 rows a
+shard against numpy, the hash exchange of lineitem's l_orderkey at its quota
+and at half of it, ``Engine.sql_distributed(sql, 8)`` on Q1, Q3, a LEFT
+join, a DISTINCT, an ORDER BY ... LIMIT and a skew join at SF1 against
+``Engine.sql``, and all 22 TPC-H queries at SF 0.01.  The
 generated TPC-H columns are kept in ``.tpch_cache`` beside this script
 (or ``P1_TPCH_CACHE``).  Every phase prints
 one JSON line; any failed phase raises, and the exit code is then non-zero.  It needs one CUDA device, the
@@ -1216,59 +1221,91 @@ def _launch_counters() -> dict:
 
 
 def _kernel_taps():
-    """Taps on ``gather_rows``, ``scatter_distinct``, ``compact`` and
-    ``take_along_axis`` in every module of the port that binds them."""
+    """Taps on ``gather_rows``, ``scatter_distinct``, ``compact``,
+    ``take_along_axis``, ``concat_rows`` and ``dense_group_agg`` in every
+    module of the port that binds them."""
     from presto1_tpu_torch.exec import executor as X
     from presto1_tpu_torch.ops import common as C, hashagg as H, \
         join as J, segments as SEG, window as W
-    from presto1_tpu_torch.ops.kernels import gather as G, scatter as S
+    from presto1_tpu_torch.ops.kernels import dense_group_agg as D, \
+        dyncopy as DC, gather as G, scatter as S
+    from presto1_tpu_torch.parallel import dist_join as PJ, \
+        distributed as PD, exchange as PE
 
     # batch.py looks gather_rows up in G at each call, expr/eval.py
-    # take_along_axis likewise; the executor binds gather_rows (Unnest,
-    # MarkDistinct) and scatter_distinct (MarkDistinct)
-    return (_Tap("gather_rows", [G, C, H, SEG, J, W, X]),
+    # take_along_axis and batch.concat_many concat_rows likewise; the
+    # executor binds gather_rows (Unnest, MarkDistinct) and scatter_distinct
+    # (MarkDistinct); the mesh plane binds gather_rows (the exchange's pack,
+    # the received rows' compaction, the dryrun join), concat_rows (the
+    # exchange's receive side) and dense_group_agg (the Q1 step)
+    return (_Tap("gather_rows", [G, C, H, SEG, J, W, X, PE, PJ, PD]),
             _Tap("scatter_distinct", [S, J, W, X]), _Tap("compact", [S, SEG]),
-            _Tap("take_along_axis", [G, W]))
+            _Tap("take_along_axis", [G, W]),
+            _Tap("concat_rows", [DC, PE, X]),
+            _Tap("dense_group_agg", [D, H, PD]))
 
 
 # the wrapper each launch counter's kernel is tapped at
 _TAPPED = {"gather": "gather_rows", "scatter": "scatter_distinct",
-           "compact": "compact", "take_along_axis": "take_along_axis"}
+           "compact": "compact", "take_along_axis": "take_along_axis",
+           "dyncopy": "concat_rows", "dense_group_agg": "dense_group_agg"}
+
+
+def _outputs(x) -> list:
+    """A wrapper's result as a list of tensors (``dense_group_agg``'s
+    counts, first rows and every slot in its own type)."""
+    if isinstance(x, torch.Tensor):
+        return [x]
+    if isinstance(x, (list, tuple)):
+        return list(x)
+    return [x.counts, x.first_row] + [x.slot(k)
+                                      for k in range(x.table.shape[1])]
 
 
 def _hold_taps(what: str, taps, must) -> dict:
     """Every call a tap kept (the largest of each kind a path made) through
     the kernel and through its plain version on the same inputs: equal by
-    ``torch.equal``, or the run fails.  ``must`` names the wrappers the path
-    has to have called: a tap among them that caught no call fails the run
-    (a module that reached the kernel around the tapped name).  Returns,
-    per kernel, the calls held and the measured largest |difference|."""
-    from presto1_tpu_torch.ops.kernels import gather as G, scatter as S
+    ``torch.equal`` (a float64 sum of ``dense_group_agg`` to 1e-9 relative,
+    as its kernel check holds it: the summation order differs), or the run
+    fails.  ``must`` names the wrappers the path has to have called: a tap
+    among them that caught no call fails the run (a module that reached the
+    kernel around the tapped name).  Returns, per kernel, the calls held,
+    the measured largest |difference| of the exact outputs and the largest
+    relative difference of the summed ones."""
+    from presto1_tpu_torch.ops.kernels import dense_group_agg as D, \
+        dyncopy as DC, gather as G, scatter as S
 
     plain = {"gather_rows": G.gather_rows_plain,
              "scatter_distinct": S.scatter_distinct_plain,
              "compact": S.compact_plain,
-             "take_along_axis": G.take_along_axis_plain}
+             "take_along_axis": G.take_along_axis_plain,
+             "concat_rows": DC.concat_rows_plain,
+             "dense_group_agg": D.dense_group_agg_plain}
     out = {}
     for tap in taps:
-        worst, most = 0.0, 0
+        worst, worst_rel, most = 0.0, 0.0, 0
         for kind, (size, args, kwargs) in tap.calls.items():
-            got = tap.orig(*args, **kwargs)
-            want = plain[tap.name](*args, **kwargs)
-            if isinstance(got, torch.Tensor):
-                got, want = [got], [want]
+            got = _outputs(tap.orig(*args, **kwargs))
+            want = _outputs(plain[tap.name](*args, **kwargs))
             for a, b in zip(got, want, strict=True):
-                if a.shape != b.shape or a.dtype != b.dtype \
-                        or not torch.equal(a, b):
+                summed = tap.name == "dense_group_agg" \
+                    and a.dtype == torch.float64
+                if a.shape != b.shape or a.dtype != b.dtype or not (
+                        _rel_err(a, b) <= 1e-9 if summed
+                        else torch.equal(a, b)):
                     raise AssertionError(
                         f"{tap.name} disagrees with its plain version on "
                         f"{what}'s call {kind}")
-                worst = max(worst, _abs_err(a, b))
+                if summed:
+                    worst_rel = max(worst_rel, _rel_err(a, b))
+                else:
+                    worst = max(worst, _abs_err(a, b))
             most = max(most, size)
         if not tap.calls and tap.name in must:
             raise AssertionError(f"{what} made no call of {tap.name}")
         out[tap.name] = {"calls_held": len(tap.calls),
-                         "largest_input_bytes": most, "max_abs_err": worst}
+                         "largest_input_bytes": most, "max_abs_err": worst,
+                         "max_rel_err_of_float64_sums": worst_rel}
     return out
 
 
@@ -2909,9 +2946,11 @@ def phase_statements_engine(catalog) -> dict:
     held = {}
     for r in results.values():
         for k, h in r["held_against_plain"].items():
-            cur = held.setdefault(k, {"calls_held": 0, "max_abs_err": 0.0})
+            cur = held.setdefault(k, {"calls_held": 0, "max_abs_err": 0.0,
+                                      "max_rel_err_of_float64_sums": 0.0})
             cur["calls_held"] += h["calls_held"]
-            cur["max_abs_err"] = max(cur["max_abs_err"], h["max_abs_err"])
+            for e in ("max_abs_err", "max_rel_err_of_float64_sums"):
+                cur[e] = max(cur[e], h[e])
     say("statements_engine", sf=catalog.sf, lineitem_rows=n,
         statements=results, approx_distinct=hll, writes=writes,
         system_tables={"queries_listed": q, "sql_calls": ran,
@@ -2926,6 +2965,357 @@ def phase_statements_engine(catalog) -> dict:
           ).to(torch.int64)[:, None].contiguous()
     return {"launches": launches, "held": held, "results": results,
             "writes": writes, "element_at_args": (x.contiguous(), at)}
+
+
+MESH_SHARDS = 8
+MESH_DRYRUN_ROWS = 1 << 19  # rows a shard of dryrun_q1 / dryrun_join
+# the mesh statements beside TPC-H Q1 and Q3 (tests/test_distributed.py and
+# __graft_entry__.py); the Q16 shape orders by every group key, so that ties
+# in its count cannot order two engines' rows differently
+MESH_LEFT_SQL = ("select c.c_custkey, count(o.o_orderkey) n "
+                 "from customer c left join orders o "
+                 "on c.c_custkey = o.o_custkey "
+                 "group by c.c_custkey order by n desc, c.c_custkey limit 20")
+MESH_DISTINCT_SQL = ("select p_brand, p_type, count(distinct ps_suppkey) as "
+                     "cnt from partsupp, part where p_partkey = ps_partkey "
+                     "and p_brand <> 'Brand#45' group by p_brand, p_type "
+                     "order by cnt desc, p_brand, p_type limit 20")
+MESH_TOPN_SQL = ("select o_custkey, o_totalprice from orders "
+                 "order by o_totalprice desc, o_custkey limit 50")
+MESH_SKEW_TABLES = (
+    "create table skewp as select "
+    "(case when l_linenumber > 1 then 1 else l_orderkey end) pk, "
+    "l_extendedprice pv from lineitem",
+    "create table skewb as select o_orderkey bk, o_totalprice bv "
+    "from orders union all "
+    "select o_orderkey + 10000000 bk, o_totalprice bv from orders")
+MESH_SKEW_SQL = "select count(*) c, sum(pv) s from skewp, skewb where pk = bk"
+MESH_EVEN_SQL = "select count(*) c from lineitem, skewb where l_orderkey = bk"
+_MESH_KINDS = ("repartition_joins", "broadcast_joins", "group_aggs",
+               "global_aggs", "skew_joins", "topn_sorts")
+
+
+def _same_result(a, b, what: str) -> None:
+    """Two engines' answers: the same columns and rows, every validity bit
+    and value equal (strings decoded, float64 to 1e-9 relative)."""
+    n = int(a.num_rows)
+    if list(a.names) != list(b.names) or n != int(b.num_rows):
+        raise AssertionError(f"{what}: {a.names} x {n} rows against "
+                             f"{b.names} x {int(b.num_rows)}")
+    for name in a.names:
+        x, y = a[name], b[name]
+        vx = torch.ones(n, dtype=torch.bool) if x.validity is None \
+            else x.validity[:n].cpu()
+        vy = torch.ones(n, dtype=torch.bool) if y.validity is None \
+            else y.validity[:n].cpu()
+        if not torch.equal(vx, vy):
+            raise AssertionError(f"{what}: NULLs of {name} differ")
+        if x.dictionary is not None or y.dictionary is not None:
+            if list(x.decode(n)) != list(y.decode(n)):
+                raise AssertionError(f"{what}: strings of {name} differ")
+            continue
+        dx, dy = x.data[:n].cpu(), y.data[:n].cpu()
+        if dx.dtype != dy.dtype:
+            raise AssertionError(f"{what}: {name} is {dx.dtype} against "
+                                 f"{dy.dtype}")
+        dx, dy = dx[vx], dy[vy]
+        ok = (_rel_err(dx, dy) <= 1e-9) if dx.dtype.is_floating_point \
+            else torch.equal(dx, dy)
+        if not ok:
+            raise AssertionError(f"{what}: values of {name} differ")
+
+
+def _numpy_dryrun_q1(cols: dict) -> dict:
+    """``distributed_q1_step``'s eight groups over the host columns: int64
+    sums per group, the charge's 32-bit limbs recombined in float64 as the
+    step does."""
+    m = cols["shipdate"] <= 10471
+    g = cols["returnflag"] * 2 + cols["linestatus"]
+    disc_price = cols["price"] * (100 - cols["disc"])
+    charge = disc_price * (100 + cols["tax"])
+    vals = {"qty": cols["qty"], "price": cols["price"], "dp": disc_price,
+            "lo": charge & 0xFFFFFFFF, "hi": charge >> 32,
+            "disc": cols["disc"]}
+    sums = {k: np.array([int(v[m & (g == j)].sum()) for j in range(8)],
+                        np.int64) for k, v in vals.items()}
+    counts = np.array([int((m & (g == j)).sum()) for j in range(8)],
+                      np.int64)
+    cnt = np.maximum(counts, 1)
+    return {"sum_qty": sums["qty"], "sum_base_price": sums["price"],
+            "sum_disc_price": sums["dp"],
+            "sum_charge": sums["hi"].astype(np.float64) * 4294967296.0
+            + sums["lo"].astype(np.float64),
+            "avg_qty": sums["qty"].astype(np.float64) / (cnt * 100),
+            "avg_price": sums["price"].astype(np.float64) / (cnt * 100),
+            "avg_disc": sums["disc"].astype(np.float64) / (cnt * 100),
+            "count_order": counts,
+            "exact_charge": [int(charge[m & (g == j)].sum())
+                             for j in range(8)]}
+
+
+def _mesh_dryruns(mesh, rows_per_shard: int) -> dict:
+    """``dryrun_q1`` and ``dryrun_join`` at ``rows_per_shard`` rows a shard,
+    held against numpy over the same seeded host columns: every Q1 group's
+    integer sums and count exactly, its float64 results to the bit (the
+    charge's exact sum to 1 ulp), the join's total and rows exactly."""
+    from presto1_tpu_torch.parallel import distributed as DI
+
+    cap = rows_per_shard * mesh.size
+    t0 = time.time()
+    got = DI.dryrun_q1(mesh, rows_per_shard)
+    torch.cuda.synchronize()
+    q1_s = time.time() - t0
+    want = _numpy_dryrun_q1(DI.dryrun_q1_columns(cap))
+    for name, g in got.items():
+        g, w = g.cpu().numpy(), want[name]
+        if g.dtype != w.dtype or not np.array_equal(g, w):
+            raise AssertionError(f"dryrun_q1 {name}: {g} != numpy {w}")
+    for j, exact in enumerate(want["exact_charge"]):
+        if abs(float(got["sum_charge"][j]) - exact) > \
+                np.spacing(float(exact)):
+            raise AssertionError(f"dryrun_q1 group {j}: charge "
+                                 f"{float(got['sum_charge'][j])} against "
+                                 f"the exact {exact}")
+    t0 = time.time()
+    total, rows = DI.dryrun_join(mesh, rows_per_shard)
+    join_s = time.time() - t0
+    cols = DI.dryrun_join_columns(cap)
+    want_total = int(cols["l_val"].sum() + cols["o_val"][cols["l_key"]].sum())
+    if (total, rows) != (want_total, cap):
+        raise AssertionError(f"dryrun_join: ({total}, {rows}) != numpy "
+                             f"({want_total}, {cap})")
+    return {"rows_per_shard": rows_per_shard, "rows": cap,
+            "q1_groups_counted": int((want["count_order"] > 0).sum()),
+            "q1_seconds": q1_s, "join_seconds": join_s,
+            "join_total": total, "join_rows": rows}
+
+
+def _numpy_partition(key: np.ndarray, n: int) -> np.ndarray:
+    """``exchange.partition_of`` in numpy: the int64 product wraps, the
+    shift is arithmetic, the modulo floors."""
+    mix = np.uint64(0x9E3779B97F4A7C15).astype(np.int64)
+    return ((key.astype(np.int64) * mix) >> 33) % n
+
+
+def _mesh_exchange(mesh, catalog, copy_rate: float) -> dict:
+    """The hash exchange over lineitem's l_orderkey with two int64
+    payloads, row-sharded as ``sql_distributed`` shards a table: at
+    ``exchange_quota``'s quota every row arrives once, at the shard its key
+    names, and the payload sums are kept; at half that quota the dropped
+    rows are numpy's count of rows over quota, and
+    ``distributed_hash_join`` of lineitem with orders raises its overflow
+    error.  Device ms of the round trip (CUDA events), its bytes, and those
+    bytes over the measured copy rate."""
+    from presto1_tpu_torch.batch import RecordBatch
+    from presto1_tpu_torch.parallel.dist_join import (
+        distributed_hash_join, exchange_quota, prep_shard_rows)
+    from presto1_tpu_torch.parallel.distributed import shard_rows
+    from presto1_tpu_torch.parallel.exchange import (all_to_all_by_key,
+                                                     partition_of)
+
+    n_dev = mesh.size
+    li = catalog.table("lineitem")
+    n = li.num_rows
+    names = ("l_orderkey", "l_partkey", "l_extendedprice")
+    cols = [li.column(c).data[:n].to(torch.int64) for c in names]
+    host = [c.cpu().numpy() for c in cols]
+    rows = prep_shard_rows(n, n_dev)
+
+    def sharded(t):
+        pad = torch.zeros(rows * n_dev - n, dtype=t.dtype, device=t.device)
+        return shard_rows(mesh, torch.cat([t, pad]))
+
+    keys, pa, pb = (sharded(c) for c in cols)
+    live = [min(max(n - s * rows, 0), rows) for s in range(n_dev)]
+    arrays = [{"a": pa[s], "b": pb[s]} for s in range(n_dev)]
+    quota = exchange_quota(host[0], n, n_dev, rows)
+
+    def run(q):
+        return all_to_all_by_key(arrays, keys, live, mesh, q)
+
+    recv, rkey, valid, dropped = run(quota)
+    arrived = sum(int(v.sum()) for v in valid)
+    if arrived != n or any(int(d) for d in dropped):
+        raise AssertionError(f"exchange at quota {quota}: {arrived} of {n} "
+                             f"rows arrived, dropped {dropped}")
+    for j, name in enumerate(("a", "b")):
+        got = sum(int(torch.where(valid[d], recv[d][name], 0).sum())
+                  for d in range(n_dev))
+        if got != int(host[j + 1].sum()):
+            raise AssertionError(f"exchange: {names[j + 1]} sums to {got} "
+                                 f"after, {int(host[j + 1].sum())} before")
+    for d in range(n_dev):
+        if not bool((partition_of(rkey[d][valid[d]], n_dev) == d).all()):
+            raise AssertionError(f"exchange: shard {d} received a key of "
+                                 f"another shard")
+    dest = _numpy_partition(host[0], n_dev)
+    half = quota // 2
+    want_drop = []
+    for s in range(n_dev):
+        c = np.bincount(dest[s * rows:s * rows + live[s]], minlength=n_dev)
+        want_drop.append(int(np.maximum(c - half, 0).sum()))
+    got_drop = [int(d) for d in run(half)[3]]
+    if got_drop != want_drop:
+        raise AssertionError(f"exchange at quota {half}: dropped {got_drop}"
+                             f", numpy {want_drop}")
+    orders = catalog.table("orders")
+    ok = orders.column("o_orderkey")
+    probe = RecordBatch({"l_orderkey": li.column("l_orderkey")}, n)
+    build = RecordBatch({"o_orderkey": ok}, orders.num_rows)
+    b_rows = prep_shard_rows(orders.num_rows, n_dev)
+    bq = exchange_quota(ok.data.cpu().numpy(), orders.num_rows, n_dev,
+                        b_rows)
+    hi = int(max(host[0].max(), int(ok.data.max())))
+    try:
+        distributed_hash_join(mesh, probe, build, ["l_orderkey"],
+                              ["o_orderkey"], "inner", [(0, hi)],
+                              (half, bq), n_dev * quota)
+        raise AssertionError("distributed_hash_join ran at half the quota")
+    except RuntimeError as e:
+        if "exchange overflow" not in str(e):
+            raise
+        overflow = str(e)
+    ms = time_ms(lambda: run(quota), reps=5, trials=3)
+    row_bytes = 8 * len(names)
+    nbytes = n * row_bytes + n_dev * n_dev * quota * row_bytes
+    copy_ms = nbytes / copy_rate * 1e3
+    return {"rows": n, "shards": n_dev, "rows_a_shard": rows,
+            "quota": quota, "received_slots": n_dev * n_dev * quota,
+            "half_quota": half, "dropped_at_half": got_drop,
+            "overflow_error": overflow[:160], "ms": ms,
+            "bytes_moved": nbytes,
+            "bytes_counted": "every input row once (key + 2 payloads), "
+                             "the [n * n * quota] received layout once",
+            "copy_bound_ms": copy_ms, "share_of_copy_rate": copy_ms / ms}
+
+
+def phase_mesh_engine(catalog, refs: dict, copy_rate: float,
+                      small_sf: float = 0.01,
+                      rows_per_shard: int = MESH_DRYRUN_ROWS) -> dict:
+    """The mesh plane on one card: ``n = 8`` logical shards (``make_mesh(8)``,
+    every shard on this device).  ``dryrun_q1`` / ``dryrun_join`` at
+    ``rows_per_shard`` rows a shard against numpy; the exchange round trip
+    over lineitem's l_orderkey at its quota and at half of it; then
+    ``Engine.sql_distributed(sql, 8)`` on TPC-H Q1, Q3, a Q13-shape LEFT
+    join, a Q16-shape DISTINCT, an ORDER BY ... LIMIT 50 and a skew join
+    (and an even-keyed join that must not take the skew path) over the SF1
+    catalog, each equal to ``Engine.sql`` (Q1 and Q3 to numpy too), with
+    wall ms, device ms and kernels a run for both; and all 22 TPC-H queries
+    at ``small_sf``.  The launch counters are read around the mesh path
+    (dryruns, exchange, the SF1 statements): ``gather``, ``compact``,
+    ``dyncopy`` and ``dense_group_agg`` must each have launched, and every
+    tapped call of the SF1 statements is held against its plain version."""
+    from presto1_tpu_torch.exec.catalog import TpchCatalog
+    from presto1_tpu_torch.exec.engine import Engine
+    from presto1_tpu_torch.parallel.distributed import make_mesh
+    from presto1_tpu_torch.testing.verifier import compare_frames
+    from presto1_tpu_torch.tpch.queries import QUERIES
+
+    t_phase = time.time()
+    mesh = make_mesh(MESH_SHARDS, device=catalog.device)
+    read = _counting()
+    dry = _mesh_dryruns(mesh, rows_per_shard)
+    exchange = _mesh_exchange(mesh, catalog, copy_rate)
+    launches = read()  # the exchange's overflow join is on the mesh path
+    engine = Engine(catalog, device=catalog.device)
+    for sql in MESH_SKEW_TABLES:
+        engine.execute_statement(sql)
+    statements = {"q1": QUERIES[1], "q3": QUERIES[3],
+                  "q13_left_join": MESH_LEFT_SQL,
+                  "q16_distinct": MESH_DISTINCT_SQL,
+                  "orderby_limit_50": MESH_TOPN_SQL,
+                  "skew_join": MESH_SKEW_SQL, "even_join": MESH_EVEN_SQL}
+
+    def wall_ms(fn) -> float:
+        torch.cuda.synchronize()
+        t0 = time.time()
+        fn()
+        torch.cuda.synchronize()
+        return (time.time() - t0) * 1e3
+
+    def profiled(fn) -> dict:
+        rows = _cuda_rows(fn, 1)
+        if not rows:
+            return {"device_ms": None, "kernels": None}
+        return {"device_ms": sum(r[1] for r in rows),
+                "kernels": sum(r[2] for r in rows)}
+
+    results, taps = {}, _kernel_taps()
+    kinds = dict.fromkeys(_MESH_KINDS, 0)
+    for key, sql in statements.items():
+        single = engine.sql(sql)
+        engine.sql_distributed(sql, MESH_SHARDS)  # warm-up
+        info: dict = {}
+        read = _counting()
+        with contextlib.ExitStack() as stack:
+            for tap in taps:
+                stack.enter_context(tap)
+            got = engine.sql_distributed(sql, MESH_SHARDS, info=info)
+        torch.cuda.synchronize()
+        used = read()
+        for k, v in used.items():
+            launches[k] += v
+        _same_result(got, single, f"mesh {key} against Engine.sql")
+        if key in ("q1", "q3"):
+            _match(_rows(got), refs[int(key[1:])], f"mesh {key} vs numpy")
+        if info["mesh_stages"] < 1:
+            raise AssertionError(f"mesh {key} ran no mesh stage: {info}")
+        for k in _MESH_KINDS:
+            kinds[k] += info[k]
+        if key == "skew_join" and info["skew_joins"] != 1:
+            raise AssertionError(f"the skew join took no skew path: {info}")
+        if key == "even_join" and info["skew_joins"] != 0:
+            raise AssertionError(f"the even-keyed join took the skew path: "
+                                 f"{info}")
+        results[key] = {
+            "info": info, "rows": int(got.num_rows),
+            "sql_distributed_wall_ms": [wall_ms(
+                lambda: engine.sql_distributed(sql, MESH_SHARDS))
+                for _ in range(2)],
+            "sql_wall_ms": [wall_ms(lambda: engine.sql(sql))
+                            for _ in range(2)],
+            "sql_distributed_profile": profiled(
+                lambda: engine.sql_distributed(sql, MESH_SHARDS)),
+            "sql_profile": profiled(lambda: engine.sql(sql)),
+            "launches": used}
+    held = _hold_taps("the mesh statements", taps,
+                      must=("gather_rows", "compact", "concat_rows",
+                            "dense_group_agg"))
+    for k in _MESH_KINDS:
+        if kinds[k] < 1:
+            raise AssertionError(f"no SF1 mesh statement took a {k} stage: "
+                                 f"{kinds}")
+    for k in ("gather", "compact", "dyncopy", "dense_group_agg"):
+        if launches[k] < 1:
+            raise AssertionError(f"the mesh path never launched {k}")
+    for t in ("skewp", "skewb"):
+        engine.execute_statement(f"drop table {t}")
+    sf1_s = time.time() - t_phase
+
+    small = Engine(TpchCatalog(sf=small_sf, device=catalog.device),
+                   device=catalog.device)
+    t0 = time.time()
+    small_infos = {}
+    for q in range(1, 23):
+        info = {}
+        a = small.sql_distributed(QUERIES[q], MESH_SHARDS, info=info)
+        err = compare_frames(a.to_pandas(), small.sql(QUERIES[q]).to_pandas())
+        if err is not None or info["mesh_stages"] < 1:
+            raise AssertionError(f"SF{small_sf} Q{q} on the mesh: {err}, "
+                                 f"{info}")
+        small_infos[q] = info
+    small_s = time.time() - t0
+    say("mesh_engine", shards=MESH_SHARDS, sf=catalog.sf,
+        devices=[str(d) for d in mesh.devices], dryruns=dry,
+        exchange=exchange, statements=results, stage_kinds=kinds,
+        launches=launches, held_against_plain=held,
+        tpch22={"sf": small_sf, "seconds": small_s, "info": small_infos},
+        seconds=time.time() - t_phase, sf1_seconds=sf1_s,
+        agrees_with=["Engine.sql on the card (values exactly, float64 to "
+                     "1e-9 relative)", "numpy int64 (Q1, Q3, the dryruns)",
+                     f"Engine.sql at SF{small_sf} (compare_frames)"])
+    return {"launches": launches, "held": held, "statements": results,
+            "exchange": exchange}
 
 
 def take_times(x, idx, axis: int, copy_rate: float) -> dict:
@@ -3606,17 +3996,19 @@ def main() -> int:
     sampled = phase_sampled_discovery(catalog, refs)
     phase_explain_analyze(catalog)
     stm = phase_statements_engine(catalog)
+    mesh = phase_mesh_engine(catalog, refs, copy_rate)
     ds = TpcdsCatalog(sf=1.0, device="cuda")
     q27 = phase_q27_engine(ds)
     q93 = phase_q93_engine(ds)
     q98 = phase_q98_engine(ds)
-    paths = (q1, q15, q3, q27, q93, q7, q98, win, spilled, grouped, stm)
+    paths = (q1, q15, q3, q27, q93, q7, q98, win, spilled, grouped, stm,
+             mesh)
     launches = {k: q6["launches"] * (k == "filter_sum")
                 + sum(p["launches"][k] for p in paths)
                 for k in q1["launches"]}
     held_paths = (("q15_view", q15), ("q3", q3), ("q27", q27), ("q93", q93),
                   ("q7", q7), ("q98", q98), ("window", win),
-                  ("statements", stm))
+                  ("statements", stm), ("mesh", mesh))
     # the main paths' own gather and scatter calls, held against the plain
     # versions in each phase, count in the kernels' measured error
     compact_err = {"max_abs_err": scatter_err["max_abs_err"],
@@ -3626,12 +4018,18 @@ def main() -> int:
     for held_err, name in ((gather_err, "gather_rows"),
                            (scatter_err, "scatter_distinct"),
                            (compact_err, "compact"),
-                           (take_err, "take_along_axis")):
+                           (take_err, "take_along_axis"),
+                           (dyncopy_err, "concat_rows"),
+                           (dense_err, "dense_group_agg")):
         held_err["max_abs_err"] = max(
             [held_err["max_abs_err"]]
             + [p["held"][name]["max_abs_err"] for _, p in held_paths])
         held_err["held_at_main_path_calls"] = {
             q: p["held"][name]["calls_held"] for q, p in held_paths}
+    dense_err["f64_max_rel_err"] = max(
+        [dense_err["f64_max_rel_err"]]
+        + [p["held"]["dense_group_agg"]["max_rel_err_of_float64_sums"]
+           for _, p in held_paths])
 
     from presto1_tpu_torch.ops.kernels import dyncopy as DC
 
@@ -3766,7 +4164,9 @@ def main() -> int:
         "experiments/pallas_primitives2.py:110, "
         "experiments/pallas_primitives2.py:142, "
         "experiments/pallas_primitives2.py:192",
-        launches["dyncopy"], {"max_abs_err": dyncopy_err["max_abs_err"]},
+        launches["dyncopy"],
+        {k: dyncopy_err[k] for k in ("max_abs_err",
+                                     "held_at_main_path_calls")},
         dyncopy_q27,
         shape="TPC-DS Q27 at SF1: the Union of its three ROLLUP levels, "
               "as the engine hands the parts over",
@@ -3822,7 +4222,17 @@ def main() -> int:
             ("q1", q1), ("q15_view", q15), ("q3", q3), ("q27", q27),
             ("q93", q93), ("q7", q7), ("q98", q98), ("window", win),
             ("spill_q1_q3_q18", spilled), ("grouped", grouped),
-            ("statements", stm))},
+            ("statements", stm), ("mesh", mesh))},
+        mesh_wall_ms={k: {"sql_distributed": r["sql_distributed_wall_ms"],
+                          "sql": r["sql_wall_ms"]}
+                      for k, r in mesh["statements"].items()},
+        mesh_device_ms={k: {"sql_distributed":
+                            r["sql_distributed_profile"]["device_ms"],
+                            "sql": r["sql_profile"]["device_ms"]}
+                        for k, r in mesh["statements"].items()},
+        mesh_exchange={k: mesh["exchange"][k]
+                       for k in ("ms", "bytes_moved", "copy_bound_ms",
+                                 "share_of_copy_rate")},
         pcie_rate=pcie,
         spill_ms={q: st["ms"] for q, st in spilled["statements"].items()},
         grouped_peak_bytes={k: r["peak_bytes_above_start"]

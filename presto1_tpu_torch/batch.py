@@ -355,31 +355,43 @@ def device_counts(counts, device) -> torch.Tensor:
 def concat_batches(a: "RecordBatch", b: "RecordBatch",
                    capacity: int) -> "RecordBatch":
     """Concatenate two batches with identical column sets: the rows of
-    ``b`` follow the live rows of ``a``.  Every part of every column moves
+    ``b`` follow the live rows of ``a`` (``concat_many`` of the two)."""
+    return concat_many([a, b], capacity)
+
+
+def concat_many(batches, capacity: int) -> "RecordBatch":
+    """The live rows of every batch of ``batches`` (at most
+    ``dyncopy.MAX_PARTS``, identical column sets, the first's order) one
+    after the other in ``[capacity]``.  Every part of every column moves
     in the dynamic-copy kernel (``ops/kernels/dyncopy.py``; one launch),
-    with both row counts on the device.  Nested ``[n, W]``
-    parts of different widths are padded with zeros to the wider; a
-    validity mask only one side carries counts as all-valid on the other.
-    Rows past the total are zeros (the JAX package repeats ``b``'s last
-    row there; both are garbage by contract)."""
+    with the row counts on the device.  Nested ``[n, W]`` parts of
+    different widths are padded with zeros to the widest; a validity mask
+    that only some batches carry counts as all-valid on the others.  Rows
+    past the total are zeros (the JAX package repeats the last batch's
+    last row there; both are garbage by contract)."""
     from .ops.kernels.dyncopy import concat_rows
 
-    device = next(iter(a.columns.values())).data.device
+    batches = list(batches)
+    first = batches[0]
+    device = next(iter(first.columns.values())).data.device
     columns, slots = [], []
-    for name, ca in a.columns.items():
-        cb = b.columns[name]
+    for name in first.columns:
+        cs = [b.columns[name] for b in batches]
         for part in _PARTS:
-            x, y = getattr(ca, part), getattr(cb, part)
-            if x is None and y is None:
+            ts = [getattr(c, part) for c in cs]
+            if all(t is None for t in ts):
                 continue
             columns.append([None if t is None else t.contiguous()
-                            for t in (x, y)])
+                            for t in ts])
             slots.append((name, part))
     moved = dict(zip(slots, concat_rows(
-        columns, device_counts([a.num_rows, b.num_rows], device),
+        columns, device_counts([b.num_rows for b in batches], device),
         capacity)))
     cols = {}
-    for name, ca in a.columns.items():
+    for name, c in first.columns.items():
         parts = {part: moved.get((name, part)) for part in _PARTS}
-        cols[name] = replace(ca, **parts)
-    return RecordBatch(cols, a.num_rows + b.num_rows)
+        cols[name] = replace(c, **parts)
+    total = first.num_rows
+    for b in batches[1:]:
+        total = total + b.num_rows
+    return RecordBatch(cols, total)

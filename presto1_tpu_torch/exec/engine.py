@@ -15,7 +15,8 @@ and plan-time access control (``server/security.py``).  The query of a
 CREATE TABLE AS or an INSERT runs under the same memory limit and spill
 threshold as ``sql`` (the JAX package runs it unbounded: ROADMAP C10), and
 VALUES decimals are parsed from their text exactly (C9).
-``sql_distributed`` waits for ROADMAP A11.
+``sql_distributed`` runs every eligible heavy stage over a mesh of logical
+shards (``parallel/``), by default all on the engine's device.
 """
 
 from __future__ import annotations
@@ -451,3 +452,312 @@ class Engine:
 
         return GroupedCompiledQuery(self, self.plan(sql, user=user),
                                     n_groups)
+
+    def sql_distributed(self, sql: str, n_devices: int = 0,
+                        info: Optional[dict] = None,
+                        skew_threshold: float = 4.0):
+        """Execute with every eligible heavy stage sharded over a mesh of
+        ``n_devices`` logical shards on this engine's device -- the SPMD
+        analog of the reference's PlanFragmenter + AddExchanges +
+        SqlQueryScheduler pipeline (``sql/planner/PlanFragmenter.java:106``,
+        ``optimizations/AddExchanges.java:115``).  ``n_devices=0`` takes
+        the number of devices of the engine's type
+        (``torch.cuda.device_count()`` on a CUDA engine, 1 on the CPU).
+
+        The fragmenter walks the optimized plan bottom-up.  Every
+        equi-join (any key arity or type, inner/left/semi/anti, residual
+        conditions) and every decomposable aggregation (grouped or global)
+        becomes a mesh stage; the distribution type is chosen per join --
+        broadcast when the build side is small
+        (``DetermineJoinDistributionType.java:56``), hash repartition
+        otherwise.  Stages compose bottom-up via fragment stubs;
+        genuinely single-device work (sorts over final outputs, window
+        functions, distinct aggregates) runs locally between stages.
+
+        ``info``, if given, is filled with stage accounting:
+        ``mesh_stages`` (total) and per-kind counts -- tests assert on it.
+        """
+        from ..batch import RecordBatch, round_capacity
+        from ..expr.eval import bind_string_ops, eval_expr
+        from ..ops.common import key_ranges
+        from ..ops.filter import filter_mask
+        from ..ops.hashagg import AggSpec
+        from ..parallel.dist_agg import (distributed_global_aggregate,
+                                         distributed_group_aggregate)
+        from ..parallel.dist_join import (JoinCapacityError,
+                                          broadcast_hash_join,
+                                          distributed_hash_join,
+                                          exchange_quota, prep_shard_rows,
+                                          route_word)
+        from ..parallel.distributed import distributed_topn, make_mesh
+        from ..parallel.skew import detect_hot_keys, skew_aware_join
+        from ..sql.logical import (Aggregate, Filter as LFilter, Join,
+                                   Sort as LSort)
+
+        plan = self.plan(sql)
+        if not n_devices:
+            n_devices = torch.cuda.device_count() \
+                if self.device.type == "cuda" else 1
+        n_dev = n_devices
+        mesh = make_mesh(n_dev, device=self.device)
+        stubs: dict = {}
+        stages = {"mesh_stages": 0, "repartition_joins": 0,
+                  "broadcast_joins": 0, "group_aggs": 0, "global_aggs": 0,
+                  "skew_joins": 0, "topn_sorts": 0}
+
+        DECOMPOSABLE = ("sum", "count", "count_star", "min", "max", "avg")
+
+        def executor(stubs):
+            return Executor(self.catalog, stubs=stubs, device=self.device)
+
+        def heavy_free(node, path):
+            """True when no un-stubbed Join/Aggregate remains below --
+            projections/filters/sorts over stubs run locally for free."""
+            if path in stubs:
+                return True
+            if isinstance(node, (Join, Aggregate)):
+                return False
+            return all(heavy_free(c, path + (i,))
+                       for i, c in enumerate(node.children))
+
+        def join_eligible(node):
+            if not node.equis:
+                return False
+            if node.kind in ("inner", "semi", "anti"):
+                return True
+            if node.kind == "left":
+                # per-shard LEFT needs the local fast paths: no residual
+                # (ops/join.py raises) -- width re-checked after discovery
+                return node.residual is None
+            return False  # full outer repartition per-shard TBD
+
+        def agg_eligible(node):
+            return all(a.fn in DECOMPOSABLE and not a.distinct
+                       for a in node.aggs)
+
+        def sort_eligible(node):
+            # distributed TopN: bounded candidate set per shard; a full
+            # unbounded ORDER BY stays local on the mesh plane (the
+            # multi-host plane's k-way merge covers that shape --
+            # exec/merge.py)
+            return (node.limit is not None
+                    and node.limit + node.offset <= 1 << 20)
+
+        def find(node, path=()):
+            """Deepest eligible distributable stage not yet stubbed."""
+            for i, c in enumerate(node.children):
+                r = find(c, path + (i,))
+                if r:
+                    return r
+            if path in stubs:
+                return None
+            if (isinstance(node, Join) and join_eligible(node)
+                    and heavy_free(node.left, path + (0,))
+                    and heavy_free(node.right, path + (1,))):
+                return "join", path, node
+            if (isinstance(node, Aggregate) and agg_eligible(node)
+                    and (heavy_free(node.child, path + (0,))
+                         or (isinstance(node.child, LFilter)
+                             and heavy_free(node.child.child,
+                                            path + (0, 0))))):
+                return "agg", path, node
+            if (isinstance(node, LSort) and sort_eligible(node)
+                    and heavy_free(node.child, path + (0,))):
+                return "sort", path, node
+            return None
+
+        def dicts_of(batch):
+            return {n: c.dictionary for n, c in batch.columns.items()
+                    if c.dictionary is not None}
+
+        def materialize_keys(batch, exprs, prefix):
+            """Key expressions become temp columns (the executor's
+            _x_Join pattern) so the mesh join sees plain columns."""
+            names = []
+            cols = dict(batch.columns)
+            for i, e in enumerate(exprs):
+                name = f"{prefix}{i}"
+                cols[name] = eval_expr(
+                    bind_string_ops(e, dicts_of(batch)), batch)
+                names.append(name)
+            return RecordBatch(cols, batch.num_rows), names
+
+        def drop_temp(batch, prefixes=("__lk", "__rk")):
+            cols = {n: c for n, c in batch.columns.items()
+                    if not n.startswith(prefixes)}
+            return RecordBatch(cols, batch.num_rows)
+
+        def run_join(node, path, ex):
+            lb = ex.execute(node.left, path + (0,))
+            rb = ex.execute(node.right, path + (1,))
+            lb, lkeys = materialize_keys(lb, [a for a, _ in node.equis],
+                                         "__lk")
+            rb, rkeys = materialize_keys(rb, [b for _, b in node.equis],
+                                         "__rk")
+            lr = key_ranges([lb[k] for k in lkeys], lb.num_rows)
+            rr = key_ranges([rb[k] for k in rkeys], rb.num_rows)
+            ranges = [(min(a[0], b[0]), max(a[1], b[1]))
+                      for a, b in zip(lr, rr)]
+            widths = sum(max(int(hi - lo + 2).bit_length(), 1)
+                         for lo, hi in ranges)
+            if node.kind == "left" and widths > 63:
+                return None  # local LEFT raises on wide keys
+            residual = None
+            if node.residual is not None:
+                merged = RecordBatch({**lb.columns, **rb.columns}, 0)
+                residual = bind_string_ops(node.residual, dicts_of(merged))
+            fanout = 1 if (node.build_unique
+                           or node.kind in ("semi", "anti")) else 4
+
+            b_rows = int(rb.num_rows)
+            p_rows = int(lb.num_rows)
+            # distribution choice (DetermineJoinDistributionType): small
+            # build sides replicate -- no exchange moves the big side
+            broadcast = (node.kind != "full"
+                         and b_rows * max(n_dev, 1) <= max(p_rows, 1) * 2)
+            if broadcast:
+                p_shard = -(-max(lb.capacity(), n_dev * 128)
+                            // (n_dev * 128)) * 128
+                local_cap = round_capacity(max(p_shard * fanout, 128))
+                while True:
+                    try:
+                        out = broadcast_hash_join(
+                            mesh, lb, rb, lkeys, rkeys, node.kind, ranges,
+                            local_cap, residual=residual,
+                            build_unique=node.build_unique)
+                        break
+                    except JoinCapacityError as e:
+                        local_cap = round_capacity(e.needed)
+                stages["broadcast_joins"] += 1
+            else:
+                p_shard = prep_shard_rows(lb.capacity(), n_dev)
+                b_shard = prep_shard_rows(rb.capacity(), n_dev)
+                lw = route_word(lb, lkeys, ranges, lb.num_rows).cpu().numpy()
+                rw = route_word(rb, rkeys, ranges, rb.num_rows).cpu().numpy()
+                # skew handling IN the shuffle (the reference has none --
+                # SURVEY §2.8): the same histogram that sizes the exchange
+                # quota flags hot keys, and the join splits into a
+                # repartitioned cold half + a hot half where probe rows
+                # stay put and the few hot build rows broadcast.
+                # Detection runs on the packed ROUTE WORD, so multi-key
+                # joins and residual conditions are covered
+                if node.kind == "inner" and p_rows > 0:
+                    hot = detect_hot_keys(lw, p_rows, n_dev,
+                                          threshold=skew_threshold)
+                    if hot.size:
+                        out = skew_aware_join(
+                            mesh, lb, rb, lkeys, rkeys, ranges, hot,
+                            lw, rw, residual=residual,
+                            build_unique=node.build_unique)
+                        stages["skew_joins"] += 1
+                        return drop_temp(
+                            RecordBatch(out.columns, int(out.num_rows)))
+                pq = exchange_quota(lw, p_rows, n_dev, p_shard)
+                bq = exchange_quota(rw, b_rows, n_dev, b_shard)
+                pq_r = round_capacity(max(pq, 128))
+                bq_r = round_capacity(max(bq, 128))
+                local_cap = round_capacity(max(n_dev * pq_r * fanout, 128))
+                while True:
+                    try:
+                        out = distributed_hash_join(
+                            mesh, lb, rb, lkeys, rkeys, node.kind, ranges,
+                            (pq_r, bq_r), local_cap, residual=residual,
+                            build_unique=node.build_unique)
+                        break
+                    except JoinCapacityError as e:
+                        local_cap = round_capacity(e.needed)
+                stages["repartition_joins"] += 1
+            return drop_temp(RecordBatch(out.columns, int(out.num_rows)))
+
+        def run_agg(node, path, ex):
+            filt = None
+            child_node = node.child
+            child_path = path + (0,)
+            if isinstance(child_node, LFilter) and child_path not in stubs:
+                filt = child_node
+                child_node = child_node.child
+                child_path = path + (0, 0)
+            below = ex.execute(child_node, child_path)
+            mask = None
+            if filt is not None:
+                mask = filter_mask(
+                    bind_string_ops(filt.predicate, dicts_of(below)),
+                    below)
+            specs = [
+                AggSpec(a.fn,
+                        None if a.arg is None else eval_expr(
+                            bind_string_ops(a.arg, dicts_of(below)),
+                            below),
+                        a.symbol)
+                for a in node.aggs
+            ]
+            if not node.group:
+                if int(below.num_rows) == 0:
+                    return None  # empty-input global agg: single-row NULL
+                    # semantics stay on the local operator
+                out = distributed_global_aggregate(
+                    mesh, specs, below.num_rows, mask=mask)
+                if int(out.num_rows) == 0:
+                    # every row masked out: SQL still wants ONE row of
+                    # NULL/0 -- the local operator implements that edge
+                    return None
+                stages["global_aggs"] += 1
+                return RecordBatch(out.columns, int(out.num_rows))
+            primary = node.primary or node.group
+            carry = [s for s in node.group if s not in primary]
+            ranges = key_ranges([below[s] for s in primary],
+                                below.num_rows)
+            span = 1
+            for lo, hi in ranges:
+                span *= (hi - lo + 2)
+                if span > below.num_rows:
+                    break
+            max_groups = round_capacity(min(max(int(below.num_rows), 1),
+                                            span))
+            out = distributed_group_aggregate(
+                mesh, primary, {s: below[s] for s in node.group},
+                specs, below.num_rows, ranges, max_groups, mask=mask,
+                carry_names=carry)
+            stages["group_aggs"] += 1
+            return RecordBatch(out.columns, int(out.num_rows))
+
+        def run_sort(node, path, ex):
+            below = ex.execute(node.child, path + (0,))
+            if int(below.num_rows) == 0:
+                return None  # empty input: local sort handles the edge
+            below2, knames = materialize_keys(
+                below, [e for e, _, _ in node.keys], "__sk")
+            out = distributed_topn(
+                mesh, below2, knames,
+                [(asc, nf) for _, asc, nf in node.keys],
+                node.limit + node.offset)
+            # the per-shard candidates (<= n_dev * k rows) feed the
+            # ORIGINAL Sort node locally: final order + offset/limit
+            cand = drop_temp(RecordBatch(out.columns, int(out.num_rows)),
+                             ("__sk",))
+            fin = executor({path + (0,): cand}).execute(node, path)
+            stages["topn_sorts"] += 1
+            return RecordBatch(fin.columns, int(fin.num_rows))
+
+        while True:
+            found = find(plan)
+            if not found:
+                break
+            kind, path, node = found
+            ex = executor(stubs)
+            out = run_join(node, path, ex) if kind == "join" \
+                else run_agg(node, path, ex) if kind == "agg" \
+                else run_sort(node, path, ex)
+            if out is None:
+                # ineligible after discovery (wide LEFT keys, empty global
+                # agg): run the stage locally so the scan moves past it
+                stubs[path] = ex.execute(node, path)
+                continue
+            stubs[path] = out
+            stages["mesh_stages"] += 1
+
+        if info is not None:
+            info.update(stages)
+        if not stubs:
+            return self.sql(sql)
+        return executor(stubs).execute(plan)

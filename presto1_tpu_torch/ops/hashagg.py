@@ -167,8 +167,9 @@ def _collect_plans(aggs, n_rows: int, isum, fsum, minmax=None):
       ``"low"`` (``x & 0xFFFFFFFF``) or ``"high"`` (``x >> 32``) of the
       int64-widened ``data`` over the rows where ``valid`` (or None) holds;
     * ``fsum(data, valid)`` -> column among the float64 sums;
-    * ``minmax(fn, column)`` -> the payload of a min / max plan (None when
-      the caller computes those from the column itself).
+    * ``minmax(fn, column)`` -> the payload of a min / max plan, beside
+      the column of its valid-row count (None when the caller computes
+      both from the column itself).
 
     The sort branch turns a request into a payload operand of the grouping
     sort, the dense branch into a slot of its kernel; both finish the plans
@@ -187,7 +188,8 @@ def _collect_plans(aggs, n_rows: int, isum, fsum, minmax=None):
             plans.append((spec, "count", cnt_ix))
             continue
         if fn in ("min", "max"):
-            plans.append((spec, fn, minmax(fn, c) if minmax else None))
+            plans.append((spec, fn,
+                          (minmax(fn, c), cnt_ix) if minmax else None))
             continue
         # sum / avg
         t = c.type
@@ -658,8 +660,12 @@ def _dense_group_aggregate(keys, aggs, num_rows, ranges, max_groups,
             out[spec.name] = sum_out[spec.name]
             continue
         c = spec.input
-        v = agg.slot(mm_ix[payload], table_c).to(c.data.dtype)
-        nonempty = (counts_c > 0) & group_live
+        mm, cnt_ix = payload
+        v = agg.slot(mm_ix[mm], table_c).to(c.data.dtype)
+        # a group of NULLs only is NULL, not the reduction's identity
+        # (the JAX package's dense path answers the identity: C20)
+        cnt = counts_c if cnt_ix is None else isums_c[:, cnt_ix]
+        nonempty = (cnt > 0) & group_live
         v = torch.where(nonempty, v, torch.zeros((), dtype=v.dtype,
                                                  device=device))
         out[spec.name] = Column(v, c.type, validity=nonempty,

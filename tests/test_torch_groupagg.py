@@ -417,3 +417,33 @@ def test_group_structure(max_groups, clustered):
         np.testing.assert_array_equal(np.asarray(jo[i]), to[i].numpy())
     np.testing.assert_array_equal(np.asarray(jo[5])[:g], to[5].numpy()[:g])
     np.testing.assert_array_equal(np.asarray(jo[6][0]), to[6][0].numpy())
+
+
+@pytest.mark.parametrize("fn", ["min", "max"])
+@pytest.mark.parametrize("ranges", [[(0, 1)], [(0, 100)]],
+                         ids=["dense", "sorting"])
+def test_min_max_of_a_group_of_nulls_is_null_c20(fn, ranges):
+    """C20: min / max of a group whose values are all NULL.  The JAX
+    package's dense path answers its identity (int64 max for min) as a
+    valid value; its sorting path and the port's both paths answer NULL,
+    as SQL does."""
+    n = 256
+    k = np.where(np.arange(n) < 100, 0, 1)
+    spec = {"k": (k, None, "bigint"),
+            "x": (np.arange(n) + 7, np.arange(n) >= 100, "bigint")}
+    jb, tb = both_batches(spec, num_rows=n)
+    got = t_agg.group_aggregate([("k", tb["k"])],
+                                [t_agg.AggSpec(fn, tb["x"], "m")], n,
+                                ranges, 128)
+    ref = j_agg.group_aggregate([("k", jb["k"])],
+                                [j_agg.AggSpec(fn, jb["x"], "m")], n,
+                                ranges, 128)
+    want = 107 if fn == "min" else n + 6
+    assert [tuple(int(v) if v is not None else None for v in r)
+            for r in got.to_pylist()] == [(0, None), (1, want)]
+    ref_first = ref.to_pylist()[0][1]
+    if ranges == [(0, 1)]:
+        assert ref_first == (np.iinfo(np.int64).max if fn == "min"
+                             else np.iinfo(np.int64).min)
+    else:
+        assert ref_first is None
