@@ -1206,20 +1206,6 @@ class _Tap:
             setattr(m, self.name, self.orig)
 
 
-def _launch_counters() -> dict:
-    """Every kernel wrapper's launch counter: name -> (module, attribute).
-    ``compact`` counts calls of the compaction, each of which launches the
-    scatter source's two compaction kernels."""
-    from presto1_tpu_torch.ops.kernels import (
-        dense_group_agg as D, dyncopy as DC, filter_sum as F, gather as G,
-        scatter as S)
-
-    return {"filter_sum": (F, "LAUNCHES"), "dense_group_agg": (D, "LAUNCHES"),
-            "gather": (G, "LAUNCHES"), "scatter": (S, "LAUNCHES"),
-            "compact": (S, "COMPACT_LAUNCHES"), "dyncopy": (DC, "LAUNCHES"),
-            "take_along_axis": (G, "TAKE_LAUNCHES")}
-
-
 def _kernel_taps():
     """Taps on ``gather_rows``, ``scatter_distinct``, ``compact``,
     ``take_along_axis``, ``concat_rows`` and ``dense_group_agg`` in every
@@ -1273,9 +1259,10 @@ def _hold_taps(what: str, taps, must) -> dict:
     the measured largest |difference| of the exact outputs and the largest
     relative difference of the summed ones."""
     from presto1_tpu_torch.ops.kernels import dense_group_agg as D, \
-        dyncopy as DC, gather as G, scatter as S
+        dyncopy as DC, filter_sum as F, gather as G, scatter as S
 
-    plain = {"gather_rows": G.gather_rows_plain,
+    plain = {"range_filter_limb_sums": F.range_filter_limb_sums_plain,
+             "gather_rows": G.gather_rows_plain,
              "scatter_distinct": S.scatter_distinct_plain,
              "compact": S.compact_plain,
              "take_along_axis": G.take_along_axis_plain,
@@ -2323,7 +2310,9 @@ def _bounded_references(catalog) -> dict:
 
 def _counting():
     """Set every launch counter to 0; returns a reader of them."""
-    counters = _launch_counters()
+    from presto1_tpu_torch.ops.kernels import launch_counters
+
+    counters = launch_counters()
     for m, attr in counters.values():
         setattr(m, attr, 0)
     return lambda: {k: getattr(m, attr) for k, (m, attr) in counters.items()}
@@ -3318,6 +3307,361 @@ def phase_mesh_engine(catalog, refs: dict, copy_rate: float,
             "exchange": exchange}
 
 
+# ------------------------------------------------------------------------
+# The server plane: a coordinator and worker processes on this card over the
+# HTTP task and results protocol (``MultiHostRunner``), a coordinator in
+# front of an engine queried through the DB-API over HTTP, and worker
+# servers in this process, where the kernel taps reach them.
+
+SERVER_WORKERS = 2
+SERVER_SQL_KEYS = (1, 6, 3)
+SERVER_FAMILIES = ("filter_sum", "dense_group_agg", "gather",
+                   "take_along_axis", "scatter", "compact", "dyncopy")
+# the other stage kinds, each against Engine.sql: (key, sql, engine options)
+SERVER_EXTRA = (
+    ("broadcast_join",
+     "select n_name, count(*) c, sum(s_acctbal) b from supplier, nation "
+     "where s_nationkey = n_nationkey group by n_name order by n_name",
+     {}),
+    ("skew_join",
+     "select l_linenumber, count(*) c, sum(l_quantity) q "
+     "from lineitem, nation where l_linenumber = n_nationkey "
+     "group by l_linenumber order by l_linenumber",
+     {"broadcast_threshold": 0, "dynamic_filtering": False,
+      "skew_threshold": 0.7, "shards_per_node": 2}),
+    ("orderby_limit",
+     "select l_orderkey, l_extendedprice from lineitem "
+     "order by l_extendedprice desc, l_orderkey limit 10", {}),
+    ("distinct",
+     "select l_returnflag, count(distinct l_suppkey) d from lineitem "
+     "group by l_returnflag order by l_returnflag", {}),
+)
+
+
+def _sync(device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _worker_metrics(registry) -> dict:
+    """Every counter of every active worker's ``/v1/metrics``, summed over
+    the workers (over HTTP, as any client reads them)."""
+    from urllib import request as urlrequest
+
+    out: dict = {}
+    for node in registry.active_nodes():
+        with urlrequest.urlopen(f"{node.uri}/v1/metrics",
+                                timeout=30) as resp:
+            for m in json.loads(resp.read().decode())["metrics"]:
+                out[m["name"]] = out.get(m["name"], 0.0) + m["total"]
+    return out
+
+
+def _metric_diff(after: dict, before: dict, prefix: str) -> dict:
+    return {k[len(prefix):]: after.get(k, 0.0) - before.get(k, 0.0)
+            for k in sorted(set(after) | set(before)) if k.startswith(prefix)}
+
+
+def _json_rows(batch) -> list:
+    """A batch's rows as the coordinator puts them on the wire (JSON)."""
+    from presto1_tpu_torch.server.coordinator import (_json_fallback,
+                                                      _json_value)
+
+    return json.loads(json.dumps(
+        [[_json_value(v) for v in row] for row in batch.to_pylist()],
+        default=_json_fallback))
+
+
+def _stage_shares(info: dict) -> dict:
+    """From a statement's stage statistics: the slowest task's wall, its
+    exchange wait, and the ms every task spent making and reading pages,
+    summed (the serde's share of the tasks' walls)."""
+    tasks_wall = sum(ss["wallMs"] * ss["tasks"] for ss in info["stage_stats"])
+    serde = sum(sum(ss["taskSerializeMs"]) + sum(ss["taskDecodeMs"])
+                for ss in info["stage_stats"])
+    return {
+        "stages": [{"stage": ss["stage"], "distribution": ss["distribution"],
+                    "table": ss["table"], "tasks": ss["tasks"],
+                    "wall_ms": ss["wallMs"], "fetch_ms": ss["fetchMs"],
+                    "serialize_ms": ss["taskSerializeMs"],
+                    "decode_ms": ss["taskDecodeMs"],
+                    "bytes_in": ss["taskBytesIn"],
+                    "routes": ss["taskRoutes"]}
+                   for ss in info["stage_stats"]],
+        "task_serde_ms": serde,
+        "coordinator_decode_ms": info["coordinator_decode_ms"],
+        "serde_share_of_task_walls": serde / tasks_wall if tasks_wall else 0,
+        "exchange_bytes_in": info["exchange_bytes_in"],
+        "coordinator_bytes": info["coordinator_bytes"]}
+
+
+def _server_statement(eng, local, sql: str, what: str, reps: int = 2,
+                      ref=None) -> dict:
+    """One statement through ``MultiHostEngine.sql`` (warm-up, then
+    ``reps`` timed calls, the last with stage statistics) against
+    ``Engine.sql`` on the card: wall ms of both, equal results."""
+    device = local.device
+    single = local.sql(sql)
+    t0 = time.time()
+    first = eng.sql(sql)
+    _sync(device)
+    first_ms = (time.time() - t0) * 1e3
+    _same_result(first, single, f"{what}: first run against Engine.sql")
+    walls, info = [], {}
+    for k in range(reps):
+        t0 = time.time()
+        got = eng.sql(sql, info=info if k == reps - 1 else None,
+                      operator_stats=False)
+        _sync(device)
+        walls.append((time.time() - t0) * 1e3)
+    _same_result(got, single, f"{what} against Engine.sql")
+    if ref is not None:
+        _match(_rows(got), ref, f"{what} against numpy")
+    sql_walls = []
+    for _ in range(reps):
+        t0 = time.time()
+        local.sql(sql)
+        _sync(device)
+        sql_walls.append((time.time() - t0) * 1e3)
+    return {"rows": int(got.num_rows), "first_wall_ms": first_ms,
+            "wall_ms": walls, "engine_sql_wall_ms": sql_walls,
+            **_stage_shares(info)}
+
+
+def _in_process_cluster(schema: str, device, n: int = SERVER_WORKERS):
+    """``n`` worker servers in this process announcing to a discovery
+    server, and a coordinator engine over them: (engine, workers, stop)."""
+    from presto1_tpu_torch.exec.catalog import TpchCatalog
+    from presto1_tpu_torch.exec.dist_engine import MultiHostEngine
+    from presto1_tpu_torch.server.discovery import NodeRegistry
+    from presto1_tpu_torch.server.worker import WorkerServer
+    from presto1_tpu_torch.testing.dist_runner import DiscoveryServer
+
+    reg = NodeRegistry(probe_interval_s=0.25).start()
+    disc = DiscoveryServer(reg).start()
+    workers = []
+
+    def stop():
+        for w in workers:
+            w.stop()
+        reg.stop()
+        disc.stop()
+
+    try:
+        for _ in range(n):
+            workers.append(WorkerServer(
+                f"tpch:{schema}", device=device,
+                coordinator=f"http://127.0.0.1:{disc.port}",
+                announce_interval_s=0.2).start())
+        deadline = time.time() + 60
+        while len(reg.active_nodes()) < n:
+            if time.time() > deadline:
+                raise TimeoutError("in-process workers did not announce")
+            time.sleep(0.05)
+        eng = MultiHostEngine(TpchCatalog(schema, device=device), reg,
+                              device=device)
+    except BaseException:
+        stop()
+        raise
+    return eng, workers, stop
+
+
+def phase_server_engine(catalog, refs: dict, cache: str,
+                        schema: str = "sf1", log_dir=None) -> dict:
+    """The server plane on the card.
+
+    (a) ``MultiHostRunner``: a ``DiscoveryServer`` and two worker processes
+    (``python -m presto1_tpu_torch.server.worker --device cuda``, catalog
+    ``tpch:<schema>``, fragments compiled on first sight) answer TPC-H Q1,
+    Q6 and Q3 through ``MultiHostEngine.sql`` -- equal to ``Engine.sql`` on
+    the card and to numpy -- then a broadcast join, a skew-aware
+    repartition join, an ORDER BY ... LIMIT (the k-way merge) and a
+    DISTINCT aggregate, each equal to ``Engine.sql``, and
+    ``explain_analyze`` of Q3.  The workers' ``/v1/metrics`` are read
+    around the statements: no task failed, Q1 / Q6 / Q3 ran no fragment
+    eagerly, and ``filter_sum``, ``dense_group_agg``, ``gather`` and
+    ``compact`` launched in the worker processes.  Every worker process is
+    killed in a ``finally`` and must have exited.
+    (b) Two ``WorkerServer``s in this process: Q1, Q6 and Q3 over HTTP
+    with every kernel wrapper tapped, each tapped call held against its
+    plain version; one profiled run of each (device ms against wall).
+    (c) A ``CoordinatorServer`` in front of ``Engine`` on the card, queried
+    through ``client/dbapi.py`` over HTTP: Q1 and Q6 rows equal to
+    ``Engine.sql``'s."""
+    from presto1_tpu_torch.exec.engine import Engine
+
+    t_phase = time.time()
+    device = catalog.device
+    local = Engine(catalog, device=device)
+    # the workers (processes and in-process) read the columns this script
+    # wrote, and compile every fragment on first sight
+    saved = {k: os.environ.get(k) for k in ("P1_TPCH_CACHE",
+                                            "P1_WORKER_COMPILE")}
+    os.environ["P1_TPCH_CACHE"] = cache
+    os.environ["P1_WORKER_COMPILE"] = "always"
+    try:
+        out = _server_phase(catalog, local, refs, schema, log_dir, t_phase)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    say("server_engine", **out["summary"])
+    return out
+
+
+def _server_phase(catalog, local, refs, schema, log_dir, t_phase) -> dict:
+    from presto1_tpu_torch.client import dbapi
+    from presto1_tpu_torch.exec.dist_engine import MultiHostEngine
+    from presto1_tpu_torch.ops.kernels import filter_sum as F
+    from presto1_tpu_torch.exec import executor as X
+    from presto1_tpu_torch.server.coordinator import CoordinatorServer
+    from presto1_tpu_torch.testing.dist_runner import MultiHostRunner
+    from presto1_tpu_torch.tpch.queries import QUERIES
+
+    device = catalog.device
+    runner = None
+    try:
+        # (a) worker processes
+        t0 = time.time()
+        runner = MultiHostRunner(
+            SERVER_WORKERS, f"tpch:{schema}", shards_per_node=1,
+            device=str(device), log_dir=log_dir)
+        start_s = time.time() - t0
+        pids = [p.pid for p in runner.workers]
+        m0 = _worker_metrics(runner.registry)
+        statements = {}
+        for q in SERVER_SQL_KEYS:
+            statements[f"q{q}"] = _server_statement(
+                runner.engine, local, QUERIES[q], f"server Q{q}",
+                ref=refs.get(q))
+        m1 = _worker_metrics(runner.registry)
+        main = _metric_diff(m1, m0, "worker.")
+        main_launches = _metric_diff(m1, m0, "kernel.")
+        if main.get("eager_fragments", 0) != 0:
+            raise AssertionError(f"Q1 / Q6 / Q3 ran {main['eager_fragments']}"
+                                 f" fragments eagerly on the workers")
+        for fam in ("filter_sum", "dense_group_agg", "gather", "compact"):
+            if main_launches.get(f"{fam}.launches", 0) < 1:
+                raise AssertionError(f"the workers never launched {fam} on "
+                                     f"Q1 / Q6 / Q3: {main_launches}")
+        extras = {}
+        for key, sql, opts in SERVER_EXTRA:
+            eng = MultiHostEngine(runner.engine.catalog, runner.registry,
+                                  device=device, **opts) \
+                if opts else runner.engine
+            extras[key] = _server_statement(eng, local, sql,
+                                            f"server {key}", reps=1)
+            info = {}
+            eng.sql(sql, info=info, operator_stats=False)
+            extras[key]["info"] = {k: info[k] for k in (
+                "stages", "broadcast_sources", "skew_joins",
+                "merged_stages", "sorted_stages", "exchange_tasks")}
+        checks = {"broadcast_join": ("broadcast_sources", 1),
+                  "skew_join": ("skew_joins", 1),
+                  "orderby_limit": ("merged_stages", 1),
+                  "distinct": ("exchange_tasks", 2)}
+        for key, (field, least) in checks.items():
+            if extras[key]["info"][field] < least:
+                raise AssertionError(f"server {key}: {field} "
+                                     f"{extras[key]['info'][field]}")
+        t0 = time.time()
+        explain = runner.engine.explain_analyze(QUERIES[3])
+        explain_ms = (time.time() - t0) * 1e3
+        if "Stage 0" not in explain or "ms across" not in explain:
+            raise AssertionError(f"explain_analyze: {explain[:400]}")
+        m2 = _worker_metrics(runner.registry)
+        totals = _metric_diff(m2, m0, "worker.")
+        if totals.get("tasks_failed", 0) != 0 or m2.get(
+                "worker.tasks_failed", 0) != 0:
+            raise AssertionError(f"worker tasks failed: {totals}")
+        server_launches = {fam: int(m2.get(f"kernel.{fam}.launches", 0))
+                           for fam in SERVER_FAMILIES}
+    finally:
+        if runner is not None:
+            runner.close()
+    if runner is not None and any(p.poll() is None for p in runner.workers):
+        raise AssertionError("a worker process outlived the phase")
+
+    # (b) worker servers in this process, kernel wrappers tapped
+    eng, workers, stop = _in_process_cluster(schema, device)
+    try:
+        for q in SERVER_SQL_KEYS:  # first sightings: discovery + compile
+            eng.sql(QUERIES[q])
+        # the reference answers first: only the server path runs counted
+        want = {q: local.sql(QUERIES[q]) for q in SERVER_SQL_KEYS}
+        _sync(device)
+        taps = _kernel_taps() + (_Tap("range_filter_limb_sums", [F, X]),)
+        read = _counting()
+        with contextlib.ExitStack() as stack:
+            for tap in taps:
+                stack.enter_context(tap)
+            got = {q: eng.sql(QUERIES[q]) for q in SERVER_SQL_KEYS}
+            _sync(device)
+        in_process_launches = read()
+        for q in SERVER_SQL_KEYS:
+            _same_result(got[q], want[q], f"in-process server Q{q}")
+        held = _hold_taps("the server statements", taps,
+                          must=("gather_rows", "compact", "dense_group_agg",
+                                "range_filter_limb_sums"))
+        profiled = {}
+        for q in SERVER_SQL_KEYS:
+            _sync(device)
+            t0 = time.time()
+            eng.sql(QUERIES[q])
+            _sync(device)
+            wall = (time.time() - t0) * 1e3
+            rows = _cuda_rows(lambda: eng.sql(QUERIES[q]), 1) \
+                if torch.device(device).type == "cuda" else []
+            dev = sum(r[1] for r in rows) if rows else None
+            profiled[f"q{q}"] = {
+                "wall_ms": wall, "device_ms": dev,
+                "kernels": sum(r[2] for r in rows) if rows else None,
+                "idle_share": None if dev is None else 1 - dev / wall,
+                "top": [list(r) for r in rows[:6]]}
+        routes = sorted({t.route for w in workers
+                         for t in list(w.runtime.tasks.values())})
+    finally:
+        stop()
+
+    # (c) a coordinator on the card, queried through the DB-API over HTTP
+    srv = CoordinatorServer(local).start()
+    try:
+        conn = dbapi.connect(f"http://127.0.0.1:{srv.port}")
+        dbapi_rows = {}
+        for q in (1, 6):
+            cur = conn.cursor().execute(QUERIES[q])
+            got = [list(r) for r in cur.fetchall()]
+            want = _json_rows(local.sql(QUERIES[q]))
+            if got != want:
+                raise AssertionError(f"dbapi Q{q} over HTTP: {got[:2]} "
+                                     f"against Engine.sql {want[:2]}")
+            dbapi_rows[f"q{q}"] = len(got)
+    finally:
+        srv.stop()
+
+    summary = {
+        "sf": catalog.sf, "workers": SERVER_WORKERS, "worker_pids": pids,
+        "workers_exited": True, "start_seconds": start_s,
+        "statements": statements, "extras": extras,
+        "worker_counters_q1_q6_q3": main,
+        "worker_launches_q1_q6_q3": main_launches,
+        "worker_counters_phase": totals,
+        "server_launches": server_launches,
+        "explain_analyze_ms": explain_ms,
+        "explain_analyze_lines": explain.count("\n") + 1,
+        "in_process": {"launches": in_process_launches, "held": held,
+                       "profiled": profiled, "routes": routes},
+        "dbapi_rows": dbapi_rows,
+        "seconds": time.time() - t_phase,
+        "agrees_with": ["Engine.sql on the card (values exactly, float64 "
+                        "to 1e-9 relative)", "numpy int64 (Q1, Q3, Q6)",
+                        "the plain versions (every tapped call)"]}
+    return {"launches": in_process_launches, "held": held,
+            "server_launches": server_launches, "summary": summary}
+
+
 def take_times(x, idx, axis: int, copy_rate: float) -> dict:
     """``take_along_axis`` at one shape, in turns with ``torch.gather`` on
     the index clamped beforehand (the same function: the wrapper clamps).
@@ -3997,18 +4341,22 @@ def main() -> int:
     phase_explain_analyze(catalog)
     stm = phase_statements_engine(catalog)
     mesh = phase_mesh_engine(catalog, refs, copy_rate)
+    server = phase_server_engine(
+        catalog, refs, cache,
+        log_dir=os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                             ".smoke_logs", "server_workers"))
     ds = TpcdsCatalog(sf=1.0, device="cuda")
     q27 = phase_q27_engine(ds)
     q93 = phase_q93_engine(ds)
     q98 = phase_q98_engine(ds)
     paths = (q1, q15, q3, q27, q93, q7, q98, win, spilled, grouped, stm,
-             mesh)
+             mesh, server)
     launches = {k: q6["launches"] * (k == "filter_sum")
                 + sum(p["launches"][k] for p in paths)
                 for k in q1["launches"]}
     held_paths = (("q15_view", q15), ("q3", q3), ("q27", q27), ("q93", q93),
                   ("q7", q7), ("q98", q98), ("window", win),
-                  ("statements", stm), ("mesh", mesh))
+                  ("statements", stm), ("mesh", mesh), ("server", server))
     # the main paths' own gather and scatter calls, held against the plain
     # versions in each phase, count in the kernels' measured error
     compact_err = {"max_abs_err": scatter_err["max_abs_err"],
@@ -4091,10 +4439,14 @@ def main() -> int:
                 "source": "presto1_tpu_torch/ops/kernels/csrc/"
                           f"{source or name}.cu",
                 "replaces": replaces, "launches": launches_n,
+                # launches in the server phase's worker processes
+                "server_launches": server["server_launches"][name],
                 **err_info, "ms": at["ms"], "plain_ms": at["plain_ms"],
                 "bound_ms": at["bound_ms"], "bound_by": at["bound_by"],
                 "library_ms": at.get("library_ms"), "card": card, **more}
 
+    # the server phase's own calls of filter_sum, held in this process
+    err = max(err, server["held"]["range_filter_limb_sums"]["max_abs_err"])
     kernels = [
         entry("filter_sum", "presto1_tpu/ops/kernels/filter_sum.py:84",
               launches["filter_sum"], {"max_abs_err": err}, at_engine,
@@ -4222,7 +4574,8 @@ def main() -> int:
             ("q1", q1), ("q15_view", q15), ("q3", q3), ("q27", q27),
             ("q93", q93), ("q7", q7), ("q98", q98), ("window", win),
             ("spill_q1_q3_q18", spilled), ("grouped", grouped),
-            ("statements", stm), ("mesh", mesh))},
+            ("statements", stm), ("mesh", mesh),
+            ("server_in_process", server))},
         mesh_wall_ms={k: {"sql_distributed": r["sql_distributed_wall_ms"],
                           "sql": r["sql_wall_ms"]}
                       for k, r in mesh["statements"].items()},
@@ -4233,6 +4586,10 @@ def main() -> int:
         mesh_exchange={k: mesh["exchange"][k]
                        for k in ("ms", "bytes_moved", "copy_bound_ms",
                                  "share_of_copy_rate")},
+        server_wall_ms={k: {"multihost": r["wall_ms"],
+                            "engine_sql": r["engine_sql_wall_ms"]}
+                        for k, r in server["summary"]["statements"].items()},
+        server_launches=server["server_launches"],
         pcie_rate=pcie,
         spill_ms={q: st["ms"] for q, st in spilled["statements"].items()},
         grouped_peak_bytes={k: r["peak_bytes_above_start"]

@@ -9,8 +9,14 @@
                      shapes, then four statements through
                      ``Engine.sql_distributed``, each held against
                      ``Engine.sql``.
+``serve(schema, port, device)`` -- a coordinator (the statement protocol,
+                     ``server/coordinator.py``) in front of an ``Engine`` on
+                     a TPC-H schema on ``device``: the README's coordinator
+                     recipe; query it with ``client/cli.py --server`` or
+                     ``client/dbapi.py``.
 
     python -m presto1_tpu_torch.entry [n_devices] [device]
+    python -m presto1_tpu_torch.entry serve [schema] [port] [device]
 """
 
 from __future__ import annotations
@@ -93,7 +99,31 @@ def dryrun_multichip(n_devices: int, device="cuda") -> dict:
     return infos
 
 
+def serve(schema: str = "tiny", port: int = 8080, device="cuda"):
+    """A started ``CoordinatorServer`` over ``Engine(TpchCatalog(schema))``
+    on ``device``, listening on ``port`` (0: any free port)."""
+    from .exec.catalog import TpchCatalog
+    from .exec.engine import Engine
+    from .server.coordinator import CoordinatorServer
+
+    engine = Engine(TpchCatalog(schema, device=device), device=device)
+    return CoordinatorServer(engine, port=port).start()
+
+
 if __name__ == "__main__":
+    if len(sys.argv) > 1 and sys.argv[1] == "serve":
+        import time
+
+        srv = serve(sys.argv[2] if len(sys.argv) > 2 else "tiny",
+                    int(sys.argv[3]) if len(sys.argv) > 3 else 8080,
+                    sys.argv[4] if len(sys.argv) > 4 else "cuda")
+        print("listening on", srv.port, flush=True)
+        try:
+            while True:
+                time.sleep(3600)
+        except KeyboardInterrupt:
+            srv.stop()
+        sys.exit(0)
     n = int(sys.argv[1]) if len(sys.argv) > 1 else 8
     dev = sys.argv[2] if len(sys.argv) > 2 else "cuda"
     for k, v in dryrun_multichip(n, dev).items():

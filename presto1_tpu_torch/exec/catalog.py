@@ -5,10 +5,21 @@ The analog of the reference's connector SPI
 reports its schema and row count, and loads only the columns a query
 references (the LazyBlock idea — ``spi/block/LazyBlock.java:431`` — moved
 up to the scan).  Loaded columns are cached as device tensors, once per device.
+
+The cache is safe for threads: a worker process uploads a fragment's scan
+columns on one thread while its tasks run on others, so ``Table.column``
+loads a column under the table's lock and every other caller of the same
+column waits for that one upload and shares it.  The TPC-H disk cache
+(``P1_TPCH_CACHE``) is safe for processes: each ``.npy`` is written under a
+temporary name and renamed into place, the dictionary before the codes, so
+a reader sees a whole column or none (two workers may fill one cache at
+once).
 """
 
 from __future__ import annotations
 
+import os
+import threading
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -27,6 +38,8 @@ class Table:
         # where columns are placed unless the caller of column() says else
         self.device = torch.device(device)
         self._cache: Dict[Tuple[str, torch.device], Column] = {}
+        # held while a column loads: one upload per (column, device)
+        self._lock = threading.RLock()
         self._ranges: Dict[str, Tuple[int, int]] = {}
         # connector-reported statistics (reference: ConnectorMetadata
         # getTableStatistics / plugin statistics providers): column sets
@@ -52,9 +65,13 @@ class Table:
         uploaded once and cached."""
         device = self.device if device is None else torch.device(device)
         key = (name, device)
-        if key not in self._cache:
-            self._cache[key] = self._load(name, device)
-        return self._cache[key]
+        col = self._cache.get(key)
+        if col is None:
+            with self._lock:
+                col = self._cache.get(key)
+                if col is None:
+                    col = self._cache[key] = self._load(name, device)
+        return col
 
     def cached(self, name: str, device) -> Optional[Column]:
         """The column on ``device`` if it is already there, else None
@@ -152,8 +169,6 @@ class TpchTable(Table):
     def _cache_path(self, column: str) -> Optional[str]:
         if self.cache_dir is None:
             return None
-        import os
-
         os.makedirs(self.cache_dir, exist_ok=True)
         return f"{self.cache_dir}/{self.name}.{column}"
 
@@ -164,25 +179,37 @@ class TpchTable(Table):
 
     def host_column(self, column: str) -> Column:
         """Host-native load (disk cache or dbgen) — no device involved."""
+        return self._host_rows(column, None)
+
+    def host_slice(self, column: str, lo: int, hi: int) -> Column:
+        """Rows [lo, hi) of a host column.  From the disk cache only those
+        rows are read (the file is memory-mapped); else the column is
+        generated whole and sliced."""
+        return self._host_rows(column, (lo, hi))
+
+    def _host_rows(self, column: str, rows) -> Column:
         t = self.schema[column]
         base = self._cache_path(column)
-        if base is not None:
-            import os
-
-            if os.path.exists(base + ".npy"):
-                data = np.load(base + ".npy")
-                dictionary = None
-                if os.path.exists(base + ".dict.npy"):
-                    dictionary = np.load(base + ".dict.npy",
-                                         allow_pickle=True)
-                return Column(data, t, dictionary=dictionary)
+        if base is not None and os.path.exists(base + ".npy"):
+            # the codes are written last, so their file means the column's
+            # dictionary is already in place
+            data = np.load(base + ".npy",
+                           mmap_mode=None if rows is None else "r")
+            if rows is not None:
+                data = np.array(data[rows[0]:rows[1]])
+            dictionary = None
+            if os.path.exists(base + ".dict.npy"):
+                dictionary = np.load(base + ".dict.npy", allow_pickle=True)
+            return Column(data, t, dictionary=dictionary)
         col = self._generate(column)
         if base is not None:
-            np.save(base + ".npy", np.asarray(col.data))
             if col.dictionary is not None:
-                np.save(base + ".dict.npy",
-                        np.asarray(col.dictionary, dtype=object),
-                        allow_pickle=True)
+                _save_atomic(base + ".dict.npy",
+                             np.asarray(col.dictionary, dtype=object))
+            _save_atomic(base + ".npy", np.asarray(col.data))
+        if rows is not None:
+            col = Column(np.asarray(col.data)[rows[0]:rows[1]], t,
+                         dictionary=col.dictionary)
         return col
 
     def _generate(self, column: str) -> Column:
@@ -212,6 +239,20 @@ class TpchTable(Table):
                     np.asarray(values, dtype="U"))
             return Column(codes, t, dictionary=dictionary)
         return Column(values.astype(t.np_dtype, copy=False), t)
+
+
+def _save_atomic(path: str, array: np.ndarray) -> None:
+    """``np.save`` to a temporary name beside ``path``, then rename it into
+    place: a concurrent reader (another process filling or reading the same
+    cache) sees the old file, no file, or the whole new one."""
+    tmp = f"{path}.{os.getpid()}.{threading.get_ident()}.tmp"
+    try:
+        with open(tmp, "wb") as f:
+            np.save(f, array, allow_pickle=array.dtype == object)
+        os.replace(tmp, path)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
 
 
 class ShardedTable(Table):
@@ -248,7 +289,11 @@ class ShardedTable(Table):
 
     def host_column(self, column: str) -> Column:
         """Host-side shard slice with no device round-trip: the full base
-        column is never uploaded just to slice it."""
+        column is never uploaded just to slice it (and from a disk cache
+        only the shard's rows are read)."""
+        host_slice = getattr(self.base, "host_slice", None)
+        if host_slice is not None:
+            return host_slice(column, self.lo, self.hi)
         c = self.base.host_column(column)
         return Column(
             np.asarray(c.data)[self.lo:self.hi], c.type,
@@ -276,7 +321,6 @@ class TpchCatalog(Catalog):
                  cache_dir: Optional[str] = None, device="cuda"):
         from ..tpch.dbgen import TpchGenerator
         from ..tpch.schema import TABLES
-        import os
 
         super().__init__()
         self.device = torch.device(device)

@@ -123,9 +123,15 @@ class Executor:
 
     def _check_capacity(self, total, capacity: int):
         """Compiled mode: record a device-side guard that the data still
-        fits the discovery-time capacity (silent truncation otherwise)."""
-        if self.compiled and not isinstance(total, int):
+        fits the discovery-time capacity (silent truncation otherwise); a
+        total already on the host is checked at once."""
+        if not self.compiled:
+            return
+        if not isinstance(total, int):
             self.overflow_checks.append(total <= capacity)
+        elif total > capacity:
+            raise ExecError(f"compiled-plan buffer overflow: {total} rows "
+                            f"outgrew the discovered capacity {capacity}")
 
     # ---- helpers
 
@@ -358,11 +364,16 @@ class Executor:
                           for sym, c in cols.items()}
         return RecordBatch(cols, b.num_rows)
 
-    def scan_inputs(self, node: LogicalNode) -> Dict[str, torch.Tensor]:
+    def scan_inputs(self, node: LogicalNode,
+                    path: Path = ()) -> Dict[str, torch.Tensor]:
         """Collect {symbol: device tensor} for every scan column in the plan
         (the compiled program's inputs), and the validity of every nullable
-        one under ``_validity_key(symbol)``."""
+        one under ``_validity_key(symbol)``.  Nothing under a stub path is
+        read: a fragment's remote inputs arrive as stubs, and the tables of
+        the stages that feed them are never uploaded here."""
         out: Dict[str, torch.Tensor] = {}
+        if path in self.stubs:
+            return out
         if isinstance(node, Scan):
             table = self._scan_table(node)
             for c, sym in node.symbols.items():
@@ -370,8 +381,8 @@ class Executor:
                 out[sym] = col.data
                 if col.validity is not None:
                     out[_validity_key(sym)] = col.validity
-        for child in node.children:
-            out.update(self.scan_inputs(child))
+        for i, child in enumerate(node.children):
+            out.update(self.scan_inputs(child, path + (i,)))
         return out
 
     def _x_Filter(self, node: Filter, path: Path) -> RecordBatch:
@@ -1492,23 +1503,33 @@ class CompiledQuery:
         with every range guarded: growth past any extrapolated value raises
         ExecError at the readback instead of silently truncating.
 
-        External fragment inputs (``stubs``, the worker's fragment input)
-        are not in this slice of the port (ROADMAP A12) and raise."""
-        if stubs:
-            raise NotImplementedError(
-                "external fragment inputs are not in this slice of the "
-                "port (ROADMAP A12)")
+        ``stubs`` makes this a compiled FRAGMENT: the given paths are
+        external inputs (a worker's remote sources) whose batches are
+        supplied per run through ``__call__(stubs=...)``.  Discovery runs
+        on these batches and takes its capacities from them, and every
+        recorded key range is guarded in each run.  A later batch with
+        other columns, types, dictionaries or capacity than the discovery
+        batch raises ``ExecError`` before anything runs; one whose rows
+        outgrow a recorded capacity or range raises ``ExecError`` at the
+        readback.  Either way the caller discovers again (the worker
+        counts it); nothing is truncated."""
         self.catalog = catalog
+        self.external = dict(stubs or {})
         self.plan = plan
         self.device = torch.device(device)
         self.route_kernels = route_kernels
         self.sample = dict(sample) if sample else None
         # every recorded range checked on the device in each run: on for
         # extrapolated records (sampled here; grouped execution sets it)
-        self.guard_ranges = bool(self.sample)
+        # and for fragments whose external inputs change from run to run
+        self.guard_ranges = bool(self.sample) or bool(self.external)
 
         roots = sorted(set(_fragment_roots(plan)), key=len, reverse=True) \
             if granularity == "fragment" else [()]
+        # external stub paths are extra fragment boundaries: they never
+        # run, their data arrives with each call
+        roots = [r for r in roots
+                 if not any(r[:len(p)] == p for p in self.external)]
         # discovery (capacity/range recording): the recorded values are
         # data-dependent, and the eager pass runs where the data lives
         disc_catalog = catalog
@@ -1517,14 +1538,16 @@ class CompiledQuery:
 
             disc_catalog = sampled_catalog_view(catalog, self.sample)
         discoverer = Executor(disc_catalog, device=self.device,
-                              route_kernels=route_kernels)
+                              route_kernels=route_kernels,
+                              stubs=self.external)
         discoverer.capture_paths = set(roots)
         discoverer.execute(plan)
         self.record = discoverer.record
         # scan inputs stay resident on the device across runs (uploaded
         # before the record is extrapolated: the range resolver reads the
         # same cached columns)
-        self.inputs = Executor(catalog, device=self.device).scan_inputs(plan)
+        self.inputs = Executor(catalog, device=self.device,
+                               stubs=self.external).scan_inputs(plan)
         # fragment-boundary capacities from discovery: a selective
         # operator's compiled output otherwise keeps its INPUT-sized
         # buffers (no _shrink when compiled), and every downstream fragment
@@ -1546,17 +1569,27 @@ class CompiledQuery:
                 (n, c.type, c.dictionary, c.validity is not None)
                 for n, c in b.columns.items()
             ]
+        # an external input's columns, and its capacity, as discovery saw
+        # them: a later call's batch must match (``_external_results``)
+        self._ext_caps: Dict[Path, int] = {}
+        for p, b in self.external.items():
+            self._meta[p] = [
+                (n, c.type, c.dictionary, c.validity is not None)
+                for n, c in b.columns.items()
+            ]
+            self._ext_caps[p] = b.capacity()
 
-        # child fragments of each root = roots whose longest proper prefix
-        # root is this one
+        # child fragments of each root = roots (or external inputs) whose
+        # longest proper prefix root is this one
         def parent_root(r: Path):
             for plen in range(len(r) - 1, -1, -1):
-                if r[:plen] in self._meta and r[:plen] != r:
+                if r[:plen] in self._meta and r[:plen] != r \
+                        and r[:plen] not in self.external:
                     return r[:plen]
             return None
 
         children: Dict[Path, List[Path]] = {r: [] for r in roots}
-        for r in roots:
+        for r in list(roots) + list(self.external):
             p = parent_root(r)
             if p is not None:
                 children[p].append(r)
@@ -1661,8 +1694,48 @@ class CompiledQuery:
                 del results[cr]
         return frag_inputs
 
-    def _run(self):
-        results: Dict[Path, tuple] = {}
+    def _external_results(self, stubs: Optional[Dict[Path, RecordBatch]]
+                          ) -> Dict[Path, tuple]:
+        """A call's external batches (the discovery batches where ``stubs``
+        names none) as fragment results ``(data, validity, n, ok)``.  Each
+        must have the discovery batch's columns, types, dictionaries,
+        nesting and capacity; anything else raises ``ExecError``, so the
+        caller discovers again instead of running a program recorded for
+        other data."""
+        out: Dict[Path, tuple] = {}
+        for p, meta in ((p, self._meta[p]) for p in self.external):
+            b = (stubs or {}).get(p, self.external[p])
+            cap = self._ext_caps[p]
+            if b.capacity() != cap:
+                raise ExecError(
+                    f"external input {p}: capacity {b.capacity()}, "
+                    f"discovered {cap}")
+            if list(b.columns) != [m[0] for m in meta]:
+                raise ExecError(f"external input {p}: columns {b.names} "
+                                f"differ from discovery's")
+            data, validity = {}, {}
+            for nm, t, dic, has_v in meta:
+                c = b.columns[nm]
+                same_dict = c.dictionary is dic or (
+                    c.dictionary is not None and dic is not None
+                    and np.array_equal(c.dictionary, dic))
+                if c.type != t or (c.validity is not None) != has_v \
+                        or not same_dict:
+                    raise ExecError(
+                        f"external input {p}: column {nm} differs from "
+                        f"discovery's in type, nullability or dictionary")
+                data[nm] = c.data
+                if c.validity is not None:
+                    validity[nm] = c.validity
+                for part in ("lengths", "map_values"):
+                    if getattr(c, part) is not None:
+                        data[_nested_key(nm, part)] = getattr(c, part)
+            out[p] = (data, validity, b.num_rows, None)
+        return out
+
+    def _run(self, stubs: Optional[Dict[Path, RecordBatch]] = None):
+        results: Dict[Path, tuple] = self._external_results(stubs) \
+            if self.external else {}
         oks = []
         for root, child_roots, fn in self._stages:
             frag_inputs = self._wire(results, child_roots, consume=True)
@@ -1694,8 +1767,9 @@ class CompiledQuery:
                 "discovery-time capacities -- re-run Engine.compile()")
         return int(n_host)
 
-    def __call__(self) -> RecordBatch:
-        data, validity, num_rows, oks = self._run()
+    def __call__(self, stubs: Optional[Dict[Path, RecordBatch]] = None
+                 ) -> RecordBatch:
+        data, validity, num_rows, oks = self._run(stubs)
         n = self._readback(num_rows, oks)
         cols = {
             nm: Column(data[nm], t, validity=validity.get(nm), dictionary=dic,
@@ -1717,7 +1791,8 @@ class CompiledQuery:
         profiling call, not a production run."""
         import time as _time
 
-        results: Dict[Path, tuple] = {}
+        results: Dict[Path, tuple] = self._external_results(None) \
+            if self.external else {}
         out_stats = []
         for root, child_roots, fn in self._stages:
             frag_inputs = self._wire(results, child_roots, consume=False)
@@ -1743,7 +1818,8 @@ class CompiledQuery:
             results[root] = out
         return out_stats
 
-    def block_run(self, reps: int = 1):
+    def block_run(self, reps: int = 1,
+                  stubs: Optional[Dict[Path, RecordBatch]] = None):
         """Execute ``reps`` times and block until complete (benchmarking).
 
         The runs are enqueued back-to-back without waiting for the device;
@@ -1752,6 +1828,6 @@ class CompiledQuery:
         is steady-state throughput."""
         all_oks = []
         for _ in range(reps):
-            data, validity, num_rows, oks = self._run()
+            data, validity, num_rows, oks = self._run(stubs)
             all_oks += oks
         return self._readback(num_rows, all_oks)

@@ -10,6 +10,7 @@ the device, so per-op time there is a profiler concern (``torch.profiler``).
 
 from __future__ import annotations
 
+import threading
 import time
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Tuple
@@ -29,24 +30,48 @@ class OperatorStats:
 
 @dataclass
 class QueryStats:
-    """Stats tree keyed by plan-node path."""
+    """Stats tree keyed by plan-node path.
+
+    ``record`` (the executing thread) and ``items`` / ``snapshot`` (a
+    reader on another thread, such as the coordinator's HTTP handler while
+    the query runs) hold ``lock``, so a reader never iterates the tree while
+    an operator is inserted.  A caller may pass its own lock (the
+    coordinator passes the query's)."""
 
     operators: Dict[Tuple[int, ...], OperatorStats] = field(default_factory=dict)
     wall_s: float = 0.0
     peak_capacity_rows: int = 0
+    lock: threading.Lock = field(default_factory=threading.Lock,
+                                 repr=False, compare=False)
 
     def record(self, path, name, detail, wall_s, output_rows, capacity,
                spill=None):
-        op = self.operators.setdefault(path, OperatorStats(name, detail))
-        op.wall_s += wall_s
-        op.output_rows = output_rows
-        op.invocations += 1
-        if spill is not None:
-            op.spill = dict(spill)
-            op.detail = (f"spilled: {spill['partitions']} partitions, "
-                         f"{spill['to_host_bytes'] / 1e6:.1f} MB to host, "
-                         f"{spill['from_host_bytes'] / 1e6:.1f} MB back")
-        self.peak_capacity_rows = max(self.peak_capacity_rows, capacity)
+        with self.lock:
+            op = self.operators.setdefault(path, OperatorStats(name, detail))
+            op.wall_s += wall_s
+            op.output_rows = output_rows
+            op.invocations += 1
+            if spill is not None:
+                op.spill = dict(spill)
+                op.detail = (f"spilled: {spill['partitions']} partitions, "
+                             f"{spill['to_host_bytes'] / 1e6:.1f} MB to "
+                             f"host, {spill['from_host_bytes'] / 1e6:.1f} "
+                             f"MB back")
+            self.peak_capacity_rows = max(self.peak_capacity_rows, capacity)
+
+    def items(self) -> List[Tuple[Tuple[int, ...], OperatorStats]]:
+        """The operators by path, sorted, copied under the lock."""
+        with self.lock:
+            return sorted(((path, OperatorStats(**vars(op)))
+                           for path, op in self.operators.items()),
+                          key=lambda kv: kv[0])
+
+    def snapshot(self) -> "QueryStats":
+        """A copy of the tree taken under the lock (to render while the
+        query still runs)."""
+        ops = dict(self.items())
+        with self.lock:
+            return QueryStats(ops, self.wall_s, self.peak_capacity_rows)
 
     def render(self, plan) -> str:
         lines: List[str] = [f"Query: {self.wall_s * 1000:.1f} ms total"]

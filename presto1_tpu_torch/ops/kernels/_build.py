@@ -23,6 +23,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import Dict, List, Optional
@@ -37,6 +38,10 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+# one build and load at a time in a process: two threads reaching a kernel
+# first together (a worker's task threads) would otherwise both start nvcc
+# on the same temporary file
+_LOAD_LOCK = threading.Lock()
 _SMS: Dict[int, int] = {}
 _L2: Dict[int, int] = {}
 # name -> {"seconds": wall time of the nvcc run (0.0 if the library was
@@ -113,10 +118,13 @@ def load(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built first if need be."""
     lib = _LIBS.get(name)
     if lib is None:
-        st = _start(name)
-        if st is not None:
-            _finish(name, st)
-        lib = _LIBS[name] = ctypes.CDLL(str(_target(name)))
+        with _LOAD_LOCK:
+            lib = _LIBS.get(name)
+            if lib is None:
+                st = _start(name)
+                if st is not None:
+                    _finish(name, st)
+                lib = _LIBS[name] = ctypes.CDLL(str(_target(name)))
     return lib
 
 

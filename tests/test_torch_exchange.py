@@ -4,7 +4,10 @@ function and against ``exchange_quota``'s numpy, and ``all_to_all_by_key``
 over 8 shards against the JAX function run inside ``shard_map`` over the
 8-virtual-device CPU mesh (as ``tests/test_distributed.py`` runs it).
 Received arrays, keys, the valid mask and the dropped-row counts equal
-exactly, at a quota that fits and at quotas that drop rows.
+exactly, at a quota that fits and at quotas that drop rows.  The JAX
+function runs in a child process (``ReferenceProcess`` of
+``test_torch_dist_ops.py``: an XLA abort of a deadlocked collective, ROADMAP
+C0, ends the child, never the test process).
 """
 
 import jax
@@ -16,11 +19,12 @@ from jax import shard_map
 from jax.sharding import PartitionSpec as P
 
 import presto1_tpu.parallel.dist_join as j_dist_join
-import presto1_tpu.parallel.distributed as j_distributed
 import presto1_tpu.parallel.exchange as j_exchange
 import presto1_tpu_torch.parallel.dist_join as t_dist_join
 import presto1_tpu_torch.parallel.distributed as t_distributed
 import presto1_tpu_torch.parallel.exchange as t_exchange
+
+from test_torch_dist_ops import ReferenceProcess, _j_mesh, _portable  # noqa
 
 torch.set_num_threads(1)
 
@@ -29,9 +33,10 @@ I64 = np.iinfo(np.int64)
 
 
 @pytest.fixture(scope="module")
-def j_mesh():
-    assert len(jax.devices()) >= N, "need 8 virtual devices (see conftest)"
-    return j_distributed.make_mesh(N)
+def ref():
+    proc = ReferenceProcess("test_torch_exchange")
+    yield proc
+    proc.close()
 
 
 @pytest.fixture(scope="module")
@@ -95,14 +100,16 @@ def _inputs(seed: int, per: int):
     return arrays, key, num_valid
 
 
-def _reference(j_mesh, arrays, key, num_valid, quota):
+def _ref_all_to_all(arrays, key, num_valid, quota):
+    """The JAX package's ``all_to_all_by_key`` inside ``shard_map`` (run in
+    the reference process)."""
     def step(arrs, key, nv):
         out, k, valid, dropped = j_exchange.all_to_all_by_key(
             arrs, key, nv[0], "d", quota)
         return out, k, valid, jnp.reshape(dropped, (1,))
 
     f = jax.jit(shard_map(
-        step, mesh=j_mesh,
+        step, mesh=_j_mesh(),
         in_specs=(dict.fromkeys(arrays, P("d")), P("d"), P("d")),
         out_specs=P("d")))
     out, k, valid, dropped = f(
@@ -135,16 +142,20 @@ def _over_quota(key, num_valid, per, quota) -> np.ndarray:
     return np.array(out)
 
 
-@pytest.mark.parametrize("quota", [64, 5, 1])
-def test_all_to_all_by_key_matches_the_reference(j_mesh, t_mesh, quota):
-    per = 64
-    arrays, key, num_valid = _inputs(3, per)
-    # the JAX package takes a 2-D array along its flattened axis
-    # (``jnp.take`` without an axis, exchange.py:80: ROADMAP C19), so it
-    # gets the matrix's columns as 1-D arrays; the port moves whole rows
+def _flat(arrays):
+    """The JAX package takes a 2-D array along its flattened axis
+    (``jnp.take`` without an axis, exchange.py:80: ROADMAP C19), so it gets
+    the matrix's columns as 1-D arrays; the port moves whole rows."""
     flat = {n: a for n, a in arrays.items() if a.ndim == 1}
     flat.update({f"m{j}": arrays["m"][:, j] for j in range(3)})
-    want = _reference(j_mesh, flat, key, num_valid, quota)
+    return flat
+
+
+@pytest.mark.parametrize("quota", [64, 5, 1])
+def test_all_to_all_by_key_matches_the_reference(ref, t_mesh, quota):
+    per = 64
+    arrays, key, num_valid = _inputs(3, per)
+    want = ref("all_to_all", _flat(arrays), key, num_valid, quota)
     got = _port(t_mesh, arrays, key, num_valid, quota)
     for j in range(3):
         np.testing.assert_array_equal(got[0]["m"][:, j], want[0][f"m{j}"])
@@ -194,7 +205,7 @@ def test_mesh_of_listed_devices_and_its_limits():
     assert t_distributed.replicate(mesh, 5) == [5, 5, 5]
 
 
-def test_a_matrix_column_moves_whole_rows_c19(j_mesh, t_mesh):
+def test_a_matrix_column_moves_whole_rows_c19(ref, t_mesh):
     """C19: the JAX package packs a 2-D array with ``jnp.take`` and no
     axis (``presto1_tpu/parallel/exchange.py:80``), which indexes the
     flattened matrix: a ``[rows, 3]`` column arrives as ``[n * quota]``
@@ -202,7 +213,7 @@ def test_a_matrix_column_moves_whole_rows_c19(j_mesh, t_mesh):
     row the one its key's row held."""
     per, quota = 64, 64
     arrays, key, num_valid = _inputs(3, per)
-    want = _reference(j_mesh, {"m": arrays["m"]}, key, num_valid, quota)
+    want = ref("all_to_all", {"m": arrays["m"]}, key, num_valid, quota)
     assert want[0]["m"].shape == (N * N * quota,)
     got = _port(t_mesh, {"m": arrays["m"], "v": arrays["v"]}, key,
                 num_valid, quota)

@@ -366,8 +366,9 @@ def test_later_plan_nodes_raise(engines, sql, item):
 def test_join_and_grouped_aggregate_raise(engines):
     """Joins and grouped aggregates run, and so do their spilled forms
     (``_grace_join``, ``_spilled_aggregate``: the same rows, partitioned
-    through host RAM); external fragment inputs still raise naming their
-    ROADMAP item."""
+    through host RAM); external fragment inputs, which raised naming ROADMAP
+    A12 until the server plane's slice, now run: a compiled Q6 whose
+    aggregate input arrives as a stub equals the eager executor's."""
     _, te = engines
     join = ("select count(*) from lineitem, orders "
             "where l_orderkey = o_orderkey")
@@ -387,9 +388,15 @@ def test_join_and_grouped_aggregate_raise(engines):
         assert spilled and all(
             type(t_executor._node_at(plan, p)).__name__ == node
             for p in spilled)
-    with pytest.raises(NotImplementedError, match="ROADMAP A12"):
-        t_executor.CompiledQuery(te.catalog, te.plan(QUERIES[6]),
-                                 stubs={(0,): None}, device="cpu")
+    plan = te.plan(QUERIES[6])
+    below = t_executor._node_at(plan, (0, 0))
+    stub = t_executor.Executor(te.catalog, device="cpu").execute(below)
+    stubs = {(0, 0): stub}
+    cq = t_executor.CompiledQuery(te.catalog, plan, stubs=stubs,
+                                  device="cpu")
+    assert cq(stubs=stubs).to_pylist() == t_executor.Executor(
+        te.catalog, device="cpu", stubs=stubs).execute(plan).to_pylist() \
+        == te.sql(QUERIES[6]).to_pylist()
 
 
 def test_overflow_guard_raises_after_the_one_readback(engines):
