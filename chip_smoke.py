@@ -115,15 +115,30 @@ def in_turns(fns: dict, rounds: int = 4) -> dict:
     return {name: statistics.median(t) for name, t in times.items()}
 
 
+def _warm_up_for_capture(fn, reps: int) -> None:
+    """Two calls of ``fn``, then a zeroed compaction state set aside for
+    every compaction that ``reps`` calls captured into a graph will make
+    (``scatter.reserve_graph_states``), synchronised."""
+    from presto1_tpu_torch.ops.kernels import scatter as S
+
+    before = S.COMPACT_LAUNCHES
+    for _ in range(2):
+        fn()
+    need = -(-(S.COMPACT_LAUNCHES - before) // 2) * reps
+    dev = torch.device("cuda", torch.cuda.current_device())
+    have = len(S._SPARE.get(dev.index, ()))
+    if need > have:
+        S.reserve_graph_states(dev, need - have)
+    torch.cuda.synchronize()
+
+
 def device_ms(fn, reps: int = 20, trials: int = 5) -> float:
     """Time of one call of ``fn`` on the device alone: ``reps`` calls are
     captured into one CUDA graph, and the median over ``trials`` of the
     CUDA-event time of a replay is divided by ``reps``.  A replay enqueues
     nothing from Python, so the host's cost of a call (which exceeds a short
     kernel's time) stays out of the number."""
-    for _ in range(2):
-        fn()
-    torch.cuda.synchronize()
+    _warm_up_for_capture(fn, reps)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
         for _ in range(reps):
@@ -141,6 +156,24 @@ def device_ms(fn, reps: int = 20, trials: int = 5) -> float:
         out.append(e0.elapsed_time(e1) / reps)
     del graph
     return statistics.median(out)
+
+
+def replay_outputs(fn, reps: int = 20):
+    """What the last of ``reps`` calls of ``fn`` captured into one CUDA
+    graph returns after the graph was replayed three times (as
+    ``device_ms`` captures and replays them), synchronised."""
+    _warm_up_for_capture(fn, reps)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            out = fn()
+    for _ in range(3):
+        graph.replay()
+    torch.cuda.synchronize()
+    out = tuple(t.clone() for t in out) if isinstance(out, tuple) \
+        else out.clone()
+    del graph
+    return out
 
 
 def phase_device() -> dict:
@@ -672,10 +705,72 @@ def phase_kernel_check_gather(gen) -> dict:
     huge[-70_000:] = _values((70_000,), torch.int8, gen)
     hold_rows([huge], index(2**32 - 60_000, 2**32 + 4099, (100_001,)),
               "int8 source past 4 GiB (64-bit offsets)")
-    del huge
+    # the take body: x of more than 2^31 elements (64-bit offsets), on
+    # both axes
+    x = huge[:2**31 + 5]
+    hold_axis(x.view(-1, 1), index(2**31 - 60_000, 2**31 + 9, (100_001, 1)),
+              0, "int8 x of 2^31 + 5 rows (64-bit offsets)")
+    hold_axis(x.view(1, -1), index(2**31 - 60_000, 2**31 + 9, (1, 100_001)),
+              1, "int8 x of one 2^31 + 5 row (64-bit offsets)")
+    del huge, x
+    take_launches = {}
+
+    def one_take(x, idx, axis, what):
+        before = G.TAKE_LAUNCHES
+        hold_axis(x, idx, axis, what)
+        take_launches[what] = G.TAKE_LAUNCHES - before
+
+    # index views off the 16-byte grid (the body reads 16-byte vectors from
+    # the boundary below), width 1 and wider on both axes, every element
+    # width, both index widths, wild indices, one-element calls
+    for dt in _MOVE_DTYPES:
+        x = _values((1000, 3), dt, gen)
+        col = _values((1000, 1), dt, gen)
+        for idt in (torch.int32, torch.int64):
+            for lo in range(4):
+                flat = index(-9, 1009, (lo + 600 * 3,), idt)
+                one_take(x, flat[lo:].view(600, 3), 0,
+                         f"{dt} {idt} axis 0, index {lo} in")
+                flat = index(-9, 12, (lo + 1000 * 5,), idt)
+                one_take(x, flat[lo:].view(1000, 5), 1,
+                         f"{dt} {idt} axis 1 width 5, index {lo} in")
+                flat = index(-2**30, 2**30, (lo + 777,), idt)
+                one_take(col, flat[lo:].view(777, 1), 0,
+                         f"{dt} {idt} column, wild index {lo} in")
+                flat = index(-5, 8, (lo + 1000,), idt)
+                one_take(x, flat[lo:].view(1000, 1), 1,
+                         f"{dt} {idt} axis 1 width 1, index {lo} in")
+            one_take(col, index(-3, 2000, (1, 1), idt), 0,
+                     f"{dt} {idt} one element")
+            empty = G.take_along_axis(x, index(0, 3, (0, 3), idt), 0)
+            if tuple(empty.shape) != (0, 3) or empty.dtype != x.dtype:
+                raise AssertionError("take_along_axis of an empty index")
+    # the engine's two calls: the window's doubling table (24 levels of
+    # 6,002,010 int64, both ends of every frame) and element_at's lane of
+    # an [n, 2] int64 matrix
+    n = 6_002_010
+    table = _values((24 * n, 1), torch.int64, gen)
+    rows = torch.arange(n, device="cuda")
+    level = torch.randint(0, 24, (n,), generator=gen, device="cuda")
+    ends = torch.stack([level * n + rows, level * n + (rows - 2).clamp(
+        min=0)], 1).reshape(-1, 1).contiguous()
+    one_take(table, ends, 0, "the window's doubling table")
+    del table, ends, level
+    one_take(_values((n, 2), torch.int64, gen), index(-1, 3, (n, 1)), 1,
+             "element_at's [6,002,010, 2] int64")
+    for what, n_launch in take_launches.items():
+        if n_launch != 1:
+            raise AssertionError(f"take_along_axis made {n_launch} launches "
+                                 f"for {what}; one is the design")
     say("kernel_check", kernel="gather", cases=cases, max_abs_err=worst,
-        tolerance=0, launches_per_call=launches)
+        tolerance=0, launches_per_call=launches,
+        take_body_cases=len(take_launches))
     return {"max_abs_err": worst}
+
+
+# the compaction's bodies: the one-launch look-back ``compact`` takes, and
+# the earlier two-pass body it is timed against
+COMPACT_ROUTES = ("lookback", "two_pass")
 
 
 def phase_kernel_check_scatter(gen) -> dict:
@@ -709,9 +804,9 @@ def phase_kernel_check_scatter(gen) -> dict:
 
     compactions = 0
 
-    def hold_compact(mask, capacity, what):
+    def hold_compact(mask, capacity, what, route="lookback", got=None):
         nonlocal compactions, worst
-        idx, count = S.compact(mask, capacity)
+        idx, count = got or S._compact(mask, capacity, route)
         torch.cuda.synchronize()
         want = torch.nonzero(mask)[:, 0]
         live = min(capacity, int(want.shape[0]))
@@ -798,21 +893,94 @@ def phase_kernel_check_scatter(gen) -> dict:
             raise AssertionError(f"compact_indices disagrees with "
                                  f"torch.nonzero (capacity {capacity})")
         cases += 1
-    # the compaction: densities 0, 0.1 %, 3.6 %, 50 % and 100 %; row counts
-    # around the 16-row lane and the 4096-row tile; capacities below, at
-    # and above the count; views off the 16-byte grid
-    for density in (0.0, 0.001, 0.036, 0.5, 1.0):
-        for n in (1, 15, 16, 17, 4095, 4097, 1_000_003, 6_002_010):
-            m = torch.rand((n + 15,), generator=gen, device="cuda") < density
-            if density == 1.0:
-                m[:] = True
-            for lo in ((0, 7, 15) if n < 10**6 else (0, 3)):
-                view = m[lo:lo + n]
-                k = int(view.sum())
-                for capacity in sorted({0, k // 2, k, k + 100, n + 17}):
-                    hold_compact(view, capacity,
-                                 f"density {density}, n={n}, {lo} bytes off "
-                                 f"the grid, capacity {capacity}")
+    # the compaction, by both bodies: all false, 0.1 %, 3.6 %, 50 % and all
+    # true; row counts around the 16-row lane, the 4096-row tile of the
+    # two-pass body and the 16,384-row tile of the look-back; capacities
+    # below, at and above the count; views 0-15 bytes off the 16-byte grid
+    launches = {}
+    for route in COMPACT_ROUTES:
+        for density in (0.0, 0.001, 0.036, 0.5, 1.0):
+            for n in (1, 15, 16, 17, 4095, 4096, 4097, 16_385, 32_769,
+                      1_000_003, 6_002_010):
+                m = torch.rand((n + 15,), generator=gen,
+                               device="cuda") < density
+                if density == 1.0:
+                    m[:] = True
+                heads = range(16) if n in (17, 4097, 16_385) else \
+                    (0, 7, 15) if n < 10**6 else (0, 3)
+                for lo in heads:
+                    view = m[lo:lo + n]
+                    k = int(view.sum())
+                    for capacity in sorted({0, k // 2, k, k + 100, n + 17}):
+                        before = S.COMPACT_LAUNCHES
+                        hold_compact(view, capacity,
+                                     f"{route}, density {density}, "
+                                     f"n={n}, {lo} bytes off the grid, "
+                                     f"capacity {capacity}", route)
+                        launches.setdefault(route, set()).add(
+                            S.COMPACT_LAUNCHES - before)
+    # a CUDA graph's replay: 20 calls captured, replayed, and the last
+    # call's indices and count held (the state the look-back keeps between
+    # launches is left zero by each)
+    replayed = {}
+    n = 6_002_010
+    for route in COMPACT_ROUTES:
+        for what, m, capacity in (
+                ("3.6 % into 262,144", mask[:n], 262_144),
+                ("all true into n", torch.ones((n,), dtype=torch.bool,
+                                               device="cuda"), n),
+                ("4097 rows 5 bytes off the grid",
+                 torch.rand((4102,), generator=gen, device="cuda")[5:]
+                 < 0.3, 5000)):
+            hold_compact(m, capacity, f"{route} replayed, {what}",
+                         got=replay_outputs(lambda: S._compact(
+                             m, capacity, route)))
+            replayed[f"{route}: {what}"] = "held"
+    # two graphs captured on the one capture stream, the first not replayed
+    # before the second is captured and replayed, then both replayed on two
+    # streams at once: each answers its own mask (each captured launch has
+    # a state of its own); a capture with no state set aside is refused
+    twins = [(torch.rand((n,), generator=gen, device="cuda") < d)
+             for d in (0.036, 0.5)]
+    for m in twins:
+        S.compact(m, n)
+    torch.cuda.synchronize()
+    S._SPARE.pop(torch.cuda.current_device(), None)
+    try:
+        with torch.cuda.graph(torch.cuda.CUDAGraph()):
+            S.compact(twins[0], n)
+    except RuntimeError as e:
+        if "reserve_graph_states" not in str(e):
+            raise
+    else:
+        raise AssertionError("a compaction was captured with no state set "
+                             "aside")
+    graphs, twin_outs = [], []
+    for m in twins:
+        S.reserve_graph_states(m.device, 3)
+        graphs.append(torch.cuda.CUDAGraph())
+        with torch.cuda.graph(graphs[-1]):
+            twin_outs.append([S.compact(m, n) for _ in range(3)])
+    graphs[1].replay()
+    streams = [torch.cuda.Stream() for _ in graphs]
+    torch.cuda.synchronize()
+    for _ in range(3):
+        for g, st in zip(graphs, streams):
+            with torch.cuda.stream(st):
+                g.replay()
+    torch.cuda.synchronize()
+    for k, (m, outs) in enumerate(zip(twins, twin_outs)):
+        for j, got in enumerate(outs):
+            hold_compact(m, n, f"graph {k} of two captured apart, call {j}",
+                         got=got)
+    replayed["two graphs captured apart, replayed at once"] = "held"
+    del graphs, twin_outs, twins
+    if any(v != {1} for v in launches.values()):
+        raise AssertionError(f"compact counted {launches} launches a call; "
+                             f"one is the design")
+    say("kernel_check", kernel="compact", compactions=compactions,
+        launches_per_call={k: sorted(v) for k, v in launches.items()},
+        graph_replays=replayed, tolerance=0)
     say("kernel_check", kernel="scatter", cases=cases, max_abs_err=worst,
         compactions=compactions, tolerance=0)
     return {"max_abs_err": worst, "mask": mask, "compactions": compactions}
@@ -986,20 +1154,31 @@ def _run_ms(q, reps: int) -> float:
     return time_ms(lambda: q.block_run(reps=reps), reps=1, trials=5) / reps
 
 
+# spin kernels each profile starts with: the profiler has dropped the
+# first device events of a session (11 in a run of this script on an H100,
+# so that one kernel a call counted 0.45 over 20 calls), and these absorb
+# them; their rows are left out
+PROFILE_LEAD = 32
+
+
 def _cuda_rows(fn, reps: int, units: int = 0) -> list:
     """(kernel name, ms, launches) of ``reps`` calls of ``fn`` from
     ``torch.profiler``'s device rows, divided by ``units`` (default: by
-    ``reps``), largest first."""
+    ``reps``), largest first; ``PROFILE_LEAD`` spin kernels go first and
+    are not counted."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        for _ in range(PROFILE_LEAD):
+            torch.cuda._sleep(1)
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
     rows = []
     for ev in prof.key_averages():
-        if ev.device_type != torch.autograd.DeviceType.CUDA:
+        if ev.device_type != torch.autograd.DeviceType.CUDA \
+                or "spin_kernel" in ev.key:
             continue  # an operator's row repeats its kernels' time
         us = getattr(ev, "self_device_time_total", None)
         if us is None:
@@ -1168,6 +1347,7 @@ class _Tap:
         self.name, self.modules = name, modules
         self.args, self.bytes = None, -1
         self.calls = {}  # kind of call -> (bytes, args, kwargs)
+        self.sizes = []  # bytes of tensor arguments, every call in order
 
     @staticmethod
     def _kind(x):
@@ -1190,6 +1370,7 @@ class _Tap:
 
         def tapped(*args, **kwargs):
             size = self._nbytes(args) + self._nbytes(list(kwargs.values()))
+            self.sizes.append(size)
             if size > self.bytes:
                 self.args, self.bytes = args, size
             kind = self._kind((args, sorted(kwargs.items())))
@@ -1532,7 +1713,8 @@ def phase_q15view_engine(catalog) -> dict:
         profile=profile, held_against_plain=held,
         agrees_with=["numpy int64 exactly", "eager == compiled"])
     return {"launches": run["launches"], "ms_per_run": ms, "held": held,
-            "profile": profile,
+            "profile": profile, "ms_trials": ms_trials,
+            "compact_rows": list(taps[2].sizes),
             "gather_args": taps[0].args, "compact_args": taps[2].args}
 
 
@@ -1605,7 +1787,9 @@ def _engine_phase(name: str, engine, sql: str, check, reps: int = 20,
     return {"run": run, "ms": sum(ms_trials) / 2, "ms_trials": ms_trials,
             "profile": _profile(run["cq"]), "held": held,
             "gather_args": taps[0].args, "scatter_args": taps[1].args,
-            "compact_args": taps[2].args, "take_args": taps[3].args}
+            "compact_args": taps[2].args, "take_args": taps[3].args,
+            # a bool mask's bytes are its rows
+            "compact_rows": list(taps[2].sizes)}
 
 
 def _numpy_q3(li, orders, cust, seg_code: int) -> list:
@@ -1684,6 +1868,7 @@ def phase_q3_engine(catalog) -> dict:
                      "eager == compiled"])
     return {"launches": run["launches"], "ms_per_run": out["ms"],
             "profile": out["profile"], "held": out["held"],
+            "ms_trials": out["ms_trials"], "compact_rows": out["compact_rows"],
             "scatter_args": out["scatter_args"],
             "gather_args": out["gather_args"]}
 
@@ -1799,6 +1984,7 @@ def phase_q27_engine(catalog) -> dict:
                      "eager == compiled"])
     return {"launches": run["launches"], "ms_per_run": out["ms"],
             "profile": out["profile"], "held": out["held"],
+            "ms_trials": out["ms_trials"], "compact_rows": out["compact_rows"],
             "union_args": tap.args, "gather_args": out["gather_args"]}
 
 
@@ -1887,6 +2073,7 @@ def phase_q93_engine(catalog) -> dict:
         agrees_with=["numpy int64 exactly (100 rows)", "eager == compiled"])
     return {"launches": run["launches"], "ms_per_run": out["ms"],
             "profile": out["profile"], "held": out["held"],
+            "ms_trials": out["ms_trials"], "compact_rows": out["compact_rows"],
             "gather_args": out["gather_args"]}
 
 
@@ -1979,7 +2166,8 @@ def phase_q7_engine(catalog) -> dict:
         profile=out["profile"], held_against_plain=out["held"],
         agrees_with=["numpy int64 exactly (4 rows)", "eager == compiled"])
     return {"launches": run["launches"], "ms_per_run": out["ms"],
-            "profile": out["profile"], "held": out["held"]}
+            "profile": out["profile"], "held": out["held"],
+            "ms_trials": out["ms_trials"], "compact_rows": out["compact_rows"]}
 
 
 def _numpy_q98(catalog) -> tuple:
@@ -2116,7 +2304,8 @@ def phase_q98_engine(catalog) -> dict:
         agrees_with=["numpy (keys and sums exactly, ratios to 1e-9 "
                      "relative)", "eager == compiled"])
     return {"launches": run["launches"], "ms_per_run": out["ms"],
-            "profile": out["profile"], "held": out["held"]}
+            "profile": out["profile"], "held": out["held"],
+            "ms_trials": out["ms_trials"], "compact_rows": out["compact_rows"]}
 
 
 WINDOW_SQL = """select l_orderkey, l_linenumber, l_suppkey,
@@ -2213,6 +2402,7 @@ def phase_window_engine(catalog) -> dict:
                      "eager == compiled"])
     return {"launches": run["launches"], "ms_per_run": out["ms"],
             "profile": out["profile"], "held": out["held"],
+            "ms_trials": out["ms_trials"], "compact_rows": out["compact_rows"],
             "take_args": out["take_args"]}
 
 
@@ -2754,7 +2944,8 @@ def phase_statements_engine(catalog) -> dict:
                         "launches_per_compiled_run": {
                             k: s["call"]
                             for k, s in run["launches_per_step"].items()},
-                        "held_against_plain": out["held"]}
+                        "held_against_plain": out["held"],
+                        "compact_rows": out["compact_rows"]}
         return out
 
     # S1: three DISTINCT aggregates and a count, grouped
@@ -3662,30 +3853,76 @@ def _server_phase(catalog, local, refs, schema, log_dir, t_phase) -> dict:
             "server_launches": server_launches, "summary": summary}
 
 
-def take_times(x, idx, axis: int, copy_rate: float) -> dict:
-    """``take_along_axis`` at one shape, in turns with ``torch.gather`` on
-    the index clamped beforehand (the same function: the wrapper clamps).
+def _strided_take_along_axis(x, idx, axis: int):
+    """``take_along_axis`` as the earlier design made it, for the
+    same-run comparison: one launch of the strided body (an element a
+    thread, a 64-bit division by the width for each, at most 16 blocks an
+    SM).  Launches made here count in no launch counter."""
+    rows, width = idx.shape
+    out = x.new_empty((rows, width))
+    wx = x.shape[1]
+    _strided_launch([x], [out], idx, rows, width, x.shape[axis],
+                    (width, 1, wx, 0, 1) if axis == 0
+                    else (width, 1, 1, wx, 0))
+    return out
+
+
+def take_times(x, idx, axis: int, copy_rate: float, sector_lib=None) -> dict:
+    """``take_along_axis`` at one shape: the take body, the earlier strided
+    body (``_strided_take_along_axis``) and ``torch.gather`` on the index
+    clamped beforehand (the same function: the wrapper clamps), in turns.
     Bytes: the index once, each distinct source element it names once, the
-    output once."""
-    from presto1_tpu_torch.ops.kernels import gather as G
+    output once.  Beside them the 32-byte sectors of x the index names,
+    and the card's random sector rate from a source of x's bytes
+    (``sector_rate``, 8 loads in flight): the time those sectors would take
+    if they were random."""
+    from presto1_tpu_torch.ops.kernels import _build, gather as G
 
     n = x.shape[axis]
     clamped = idx.clamp(0, n - 1).to(torch.int64)
-    distinct = int(torch.unique(clamped.view(-1)).numel()) \
-        if x.shape[1 - axis] == 1 else clamped.numel()
+    # the element of x each index element names
+    if axis == 0:
+        elem = clamped * x.shape[1] + torch.arange(
+            idx.shape[1], device="cuda")[None, :]
+    else:
+        elem = torch.arange(idx.shape[0], device="cuda")[:, None] \
+            * x.shape[1] + clamped
+    distinct = int(torch.unique(elem.view(-1)).numel())
+    sectors = int(torch.unique(
+        (elem.view(-1) * x.element_size()) // 32).numel())
+    del elem
     nbytes = idx.numel() * (idx.element_size() + x.element_size()) \
         + distinct * x.element_size()
-    turns = in_turns({"ms": lambda: G.take_along_axis(x, idx, axis),
-                      "library_ms": lambda: torch.gather(x, axis, clamped)})
+    turns = in_turns({
+        "ms": lambda: G.take_along_axis(x, idx, axis),
+        "old_strided_ms": lambda: _strided_take_along_axis(x, idx, axis),
+        "library_ms": lambda: torch.gather(x, axis, clamped)})
+    rows = kernel_rows_ms(lambda: G.take_along_axis(x, idx, axis))
+    plan = G.plan_take(
+        idx.numel(), idx.shape[1], x.numel(), x.element_size(),
+        idx.element_size(), idx.data_ptr(), 0, _build.sm_count(x.device),
+        lambda wide: G._TAKE_OCCUPANCY[(x.device.index,
+                                        G._LOG2[x.element_size()],
+                                        idx.element_size(), int(wide),
+                                        axis)],
+        _build.l2_bytes(x.device))
     out = {"x": f"{x.dtype}{list(x.shape)}",
            "idx": f"{idx.dtype}{list(idx.shape)}", "axis": axis,
-           "distinct_elements_read": distinct, **turns,
-           "timed": "ms and library_ms in turns (in_turns)",
+           "plan": plan._asdict(), "distinct_elements_read": distinct,
+           "sectors_of_x_named": sectors, **turns,
+           "timed": "ms, old_strided_ms and library_ms in turns (in_turns)",
+           "kernel_rows_ms": rows["ms"], "kernels": rows["kernels"],
            "plain_ms": device_ms(lambda: G.take_along_axis_plain(x, idx,
                                                                  axis)),
+           **_call_ms(lambda: G.take_along_axis(x, idx, axis)),
            **_bounds(nbytes, idx.numel(), copy_rate),
            "library_call": "torch.gather on indices already in range"}
     out["share_of_bound"] = out["bound_ms"] / out["ms"]
+    out["bytes_per_s"] = nbytes / (out["ms"] * 1e-3)
+    if sector_lib is not None:
+        rate = sector_rate(sector_lib, x.numel() * x.element_size(), 8)
+        out["sector_rate_at_x_bytes"] = rate
+        out["random_sector_ms"] = sectors / rate["sectors_per_s"] * 1e3
     return out
 
 
@@ -3789,17 +4026,40 @@ def dense_times(word, groups, columns, slots, copy_rate: float,
     return out
 
 
-def _strided_gather_rows(sources, idx):
-    """``gather_rows`` as the earlier design made it, for the same-run
-    comparison: the same argument checks, outputs allocated one by one,
-    then one launch of the strided body (the earlier kernel, kept for
-    ``take_along_axis``) per element width of the 1-D columns (32 columns
-    a launch) and one per ``[n, W]`` matrix, each inside
-    ``torch.cuda.device``.  Launches made here count in no launch
-    counter."""
+def _strided_launch(srcs, dsts, idx, rows: int, width: int, n: int,
+                    strides) -> None:
+    """One launch of the strided body (``p1_gather_strided``), the earlier
+    design's gather: up to 32 (source, destination) pairs of one element
+    width through ``idx``, ``rows * width`` elements, strides as in
+    ``csrc/gather.cu``; a grid of an element a thread, at most 16 blocks an
+    SM, entered inside ``torch.cuda.device``."""
     import ctypes
 
     from presto1_tpu_torch.ops.kernels import _build, gather as G
+
+    lib = G._library()
+    dev = idx.device
+    blocks = max(1, min(-(-(rows * width) // G.THREADS),
+                        _build.sm_count(dev) * 16))
+    ptrs = ctypes.c_void_p * len(srcs)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.p1_gather_strided(
+            ptrs(*[t.data_ptr() for t in srcs]),
+            ptrs(*[t.data_ptr() for t in dsts]), len(srcs),
+            srcs[0].element_size(), idx.data_ptr(), idx.element_size(),
+            rows, width, n, (ctypes.c_int64 * 5)(*strides), blocks, stream)
+    if err != 0:
+        raise RuntimeError(f"strided gather launch failed: error {err}")
+
+
+def _strided_gather_rows(sources, idx):
+    """``gather_rows`` as the earlier design made it, for the same-run
+    comparison: the same argument checks, outputs allocated one by one,
+    then one launch of the strided body per element width of the 1-D
+    columns (32 columns a launch) and one per ``[n, W]`` matrix.  Launches
+    made here count in no launch counter."""
+    from presto1_tpu_torch.ops.kernels import gather as G
 
     sources = list(sources)
     G._check_idx(idx, 1)
@@ -3810,27 +4070,10 @@ def _strided_gather_rows(sources, idx):
                 or s.element_size() not in (1, 2, 4, 8) \
                 or not s.is_contiguous():
             raise ValueError(f"sources[{k}]")
-    lib = G._library()
     m, n = idx.shape[0], sources[0].shape[0]
     idx = idx.contiguous()
     outs = [torch.empty((m,) + tuple(s.shape[1:]), dtype=s.dtype,
                         device=s.device) for s in sources]
-
-    def launch(srcs, dsts, width, strides):
-        dev = idx.device
-        blocks = max(1, min(-(-(m * width) // G.THREADS),
-                            _build.sm_count(dev) * 16))
-        ptrs = ctypes.c_void_p * len(srcs)
-        with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream(dev).cuda_stream
-            err = lib.p1_gather_strided(
-                ptrs(*[t.data_ptr() for t in srcs]),
-                ptrs(*[t.data_ptr() for t in dsts]), len(srcs),
-                srcs[0].element_size(), idx.data_ptr(), idx.element_size(),
-                m, width, n, (ctypes.c_int64 * 5)(*strides), blocks, stream)
-        if err != 0:
-            raise RuntimeError(f"strided gather launch failed: error {err}")
-
     by_width: dict = {}
     for k, s in enumerate(sources):
         if s.dim() == 1:
@@ -3838,12 +4081,13 @@ def _strided_gather_rows(sources, idx):
     for ks in by_width.values():
         for at in range(0, len(ks), G.MAX_PAIRS):
             part = ks[at:at + G.MAX_PAIRS]
-            launch([sources[k] for k in part], [outs[k] for k in part], 1,
-                   (1, 0, 1, 0, 0))
+            _strided_launch([sources[k] for k in part],
+                            [outs[k] for k in part], idx, m, 1, n,
+                            (1, 0, 1, 0, 0))
     for k, s in enumerate(sources):
         if s.dim() == 2 and s.shape[1] > 0:
             w = s.shape[1]
-            launch([s], [outs[k]], w, (1, 0, w, 0, 1))
+            _strided_launch([s], [outs[k]], idx, m, w, n, (1, 0, w, 0, 1))
     return outs
 
 
@@ -4178,57 +4422,99 @@ def scatter_times(idx, x, size, mask, copy_rate: float) -> dict:
 
 def compact_times(mask, capacity: int, copy_rate: float) -> dict:
     """``compact`` at one shape.  Bytes the function needs: the mask once,
-    ``capacity`` indices and the count written once.  Each of its two
-    kernels beside the bytes it needs (the count pass: the mask and the
-    chunk counts; the write pass: the mask, the chunk counts, the indices
-    and the count), and the device time of one one-element fill, the least
-    a launch in a graph costs.  Beside it, the composition it replaced in
-    ``compact_indices`` (sum, prefix sum, ``- 1``, then ``scatter_distinct``
-    with its zero fill: the redesigned scatter kernel, the row numbers made
-    beforehand) by graph replay and by its kernel rows, and
+    ``capacity`` indices and the count written once.  Both bodies -- the
+    one-launch look-back and the earlier two-pass body -- by graph replay
+    in turns, ``ms`` the look-back (the route ``compact`` takes);
+    the planned call's kernel rows (one kernel a call is the design) and
+    the two-pass body's rows beside the bytes each of its passes needs
+    (the count pass: the mask and the chunk counts; the write pass: the
+    mask, the chunk counts, the indices and the count); the device time of
+    a one-element fill, the least a launch in a graph costs; and
     ``torch.nonzero`` (the same indices without the padding, sized on the
-    host) by its kernel rows."""
+    host) by its kernel rows, measured right after the turns."""
     from presto1_tpu_torch.ops.kernels import _build, scatter as S
 
     n = mask.shape[0]
     kept = int(mask.sum())
     nbytes = n + capacity * 8 + 8
-    row_numbers = torch.arange(n, device="cuda")
-
-    def composition():
-        count = torch.sum(mask)
-        rank = torch.cumsum(mask, dim=0) - 1
-        return S.scatter_distinct(rank, row_numbers, capacity, mask), count
-
+    S.compact(mask, capacity)  # the occupancy is asked once
+    plan = S.compact_route(n, mask.data_ptr() % 16,
+                           _build.sm_count(mask.device),
+                           lambda: S._OCCUPANCY[mask.device.index])
+    turns = in_turns({f"{r}_ms": (lambda r=r: S._compact(mask, capacity, r))
+                      for r in COMPACT_ROUTES})
+    library = kernel_rows_ms(lambda: torch.nonzero(mask))
+    rows = kernel_rows_ms(lambda: S.compact(mask, capacity))
+    two = kernel_rows_ms(lambda: S._compact(mask, capacity, "two_pass"))
     blocks, _ = S.compact_plan(n, mask.data_ptr() % 16,
                                _build.sm_count(mask.device))
     pass_bytes = {"compact_count": n + 8 * blocks,
                   "compact_write": n + 8 * blocks + capacity * 8 + 8}
-    one = torch.empty((1,), dtype=torch.int64, device="cuda")
-    rows = kernel_rows_ms(lambda: S.compact(mask, capacity))
     passes = {name: {"ms": ms, "bytes": pass_bytes[key],
                      "bound_ms": pass_bytes[key] / H100_BYTES_PER_S * 1e3}
-              for name, ms, _ in rows["rows"]
+              for name, ms, _ in two["rows"]
               for key in pass_bytes if key in name}
-    old_rows = kernel_rows_ms(composition)
-    lib = kernel_rows_ms(lambda: torch.nonzero(mask))
+    one = torch.empty((1,), dtype=torch.int64, device="cuda")
     out = {"rows": n, "capacity": capacity, "kept": kept,
-           "ms": device_ms(lambda: S.compact(mask, capacity)),
+           "plan": plan._asdict(),
+           "ms": turns[f"{plan.route}_ms"],
+           **turns, "timed": "every body in turns (in_turns)",
            "kernel_rows_ms": rows["ms"], "kernels": rows["kernels"],
-           "kernel_rows": rows["rows"], "passes": passes,
+           "kernel_rows": rows["rows"],
+           "two_pass_kernel_rows_ms": two["ms"],
+           "two_pass_kernels": two["kernels"], "two_pass_passes": passes,
            "one_element_fill_ms": device_ms(lambda: one.zero_()),
            "plain_ms": device_ms(lambda: S.compact_plain(mask, capacity)),
            **_call_ms(lambda: S.compact(mask, capacity)),
            **_bounds(nbytes, n, copy_rate),
-           "old_composition_ms": device_ms(composition),
-           "old_composition_kernel_rows_ms": old_rows["ms"],
-           "old_composition_kernels": old_rows["kernels"],
-           "old_composition_rows": old_rows["rows"],
-           "old_composition_call_ms": time_ms(composition),
-           "library_ms": lib["ms"], "library_kernels": lib["kernels"],
+           "library_ms": library["ms"], "library_kernels": library["kernels"],
            "library_call": "torch.nonzero (sizes its result on the host; "
                            "its kernel rows only)"}
+    out["share_of_bound"] = out["bound_ms"] / out["ms"]
     out["bytes_per_s"] = nbytes / (out["ms"] * 1e-3)
+    return out
+
+
+def compact_calls_by_rows(calls: dict, device_ms_per_run: dict,
+                          trials: dict, gen) -> dict:
+    """The compaction calls each statement made in its tapped run, by mask
+    rows, split at 2^20; and what the two-pass body would save on the
+    calls below 2^20 rows if ``compact`` took it there.  At every distinct
+    row count below 2^20 both bodies are timed in turns on masks of 3.6 %
+    and 50 % (capacity the count plus 288); a call is given the larger of
+    the two savings (look-back minus two-pass; negative where the
+    look-back is faster).  Each statement's summed saving stands beside
+    its device ms a run and the gap between its two timed trials (the
+    end-to-end metric's own spread in this run)."""
+    from presto1_tpu_torch.ops.kernels import scatter as S
+
+    split = 1 << 20
+    small = sorted({r for rows in calls.values() for r in rows
+                    if 0 < r < split})
+    saving = {}
+    for n in small:
+        worst = None
+        for density in (0.036, 0.5):
+            m = torch.rand((n,), generator=gen, device="cuda") < density
+            capacity = int(m.sum()) + 288
+            t = in_turns({r: (lambda r=r: S._compact(m, capacity, r))
+                          for r in COMPACT_ROUTES})
+            d = t["lookback"] - t["two_pass"]
+            worst = d if worst is None else max(worst, d)
+        saving[n] = worst
+    out = {"split_rows": split, "by_statement": {}}
+    for key, rows in calls.items():
+        below = [r for r in rows if 0 < r < split]
+        saved = sum(saving[r] for r in below)
+        spread = trials.get(key)
+        out["by_statement"][key] = {
+            "calls": len(rows), "below_split": len(below),
+            "at_or_above_split": sum(r >= split for r in rows),
+            "rows_below_split": sorted(below),
+            "two_pass_saves_ms": saved,
+            "device_ms_per_run": device_ms_per_run.get(key),
+            "trial_spread_ms": spread}
+    out["lookback_minus_two_pass_ms_by_rows"] = saving
     return out
 
 
@@ -4413,6 +4699,22 @@ def main() -> int:
         copy_rate)
     compact_q15 = compact_times(*q15["compact_args"], copy_rate)
     compact_mask = compact_times(mask, 262_144, copy_rate)
+    # the filter's and the merge join's dense shapes: half and all of
+    # 6,002,010 rows kept, into n
+    half = torch.rand((n,), generator=gen, device="cuda") < 0.5
+    compact_half = compact_times(half, n, copy_rate)
+    compact_all = compact_times(torch.ones_like(half), n, copy_rate)
+    del half
+    # each statement's compaction calls by rows, and what the two-pass body
+    # would save on those below 2^20 rows
+    keyed = {"q15_view": q15, "q3": q3, "q27": q27, "q93": q93, "q7": q7,
+             "q98": q98, "window": win, **stm["results"]}
+    by_rows = compact_calls_by_rows(
+        {k: p["compact_rows"] for k, p in keyed.items()},
+        {k: p["profile"].get("device_ms_per_run") for k, p in keyed.items()},
+        {k: abs(p["ms_trials"][0] - p["ms_trials"][1])
+         for k, p in keyed.items()}, gen)
+    say("compaction_calls_by_rows", **by_rows)
     # the Q27 Union's parts as the engine handed them over, against the
     # plain version too, then timed; and the fact-table UNION ALL
     union_cols, union_counts, union_cap = q27["union_args"]
@@ -4428,7 +4730,7 @@ def main() -> int:
     dyncopy_q27 = dyncopy_times(union_cols, union_counts, union_cap,
                                 copy_rate)
     table, ends = win["take_args"]  # the window reads along axis 0
-    take_window = take_times(table, ends, 0, copy_rate)
+    take_window = take_times(table, ends, 0, copy_rate, sector_lib)
     # element_at's shape: one lane a row of a [6,002,010, 2] int64 matrix
     take_element_at = take_times(*stm.pop("element_at_args"), 1, copy_rate)
     dyncopy_fact = dyncopy_times(*dyncopy_err.pop("fact_args"), copy_rate)
@@ -4483,9 +4785,12 @@ def main() -> int:
               compact_q15, source="scatter",
               shape="the Q15 view's largest compaction at SF1: the group "
                     "boundaries among 6,002,010 sorted rows",
-              launches_counted="calls of compact (two kernels each)",
+              launches_counted="calls of compact (one kernel each)",
               at_engine_shape=compact_q15,
-              at_view_density_mask_into_262144=compact_mask),
+              at_view_density_mask_into_262144=compact_mask,
+              at_half_of_6002010_into_n=compact_half,
+              at_all_of_6002010_into_n=compact_all,
+              calls_by_rows=by_rows),
         entry("gather",
               "experiments/pallas_primitives.py:54, "
               "experiments/pallas_primitives.py:78, "
@@ -4596,6 +4901,17 @@ def main() -> int:
                             for k, r in grouped["runs"].items()},
         discovery_s={k: r["discovery_s"] for k, r in sampled.items()},
         q15view_largest_compaction_ms=compact_q15["ms"],
+        compaction_ms={k: {f: c[f] for f in (
+            "ms", "lookback_ms", "two_pass_ms", "library_ms", "bound_ms",
+            "kernels")}
+                       for k, c in (("view", compact_q15),
+                                    ("mask_3.6%_262144", compact_mask),
+                                    ("half_into_n", compact_half),
+                                    ("all_into_n", compact_all))},
+        take_along_axis_ms={k: {f: t[f] for f in ("ms", "old_strided_ms",
+                                                  "library_ms", "bound_ms")}
+                            for k, t in (("window", take_window),
+                                         ("element_at", take_element_at))},
         q3_largest_scatter_ms=scatter_q3["ms"],
         device_ms_per_run={k: p["profile"].get("device_ms_per_run")
                            for k, p in (("q1", q1), ("q15_view", q15),

@@ -890,10 +890,46 @@ def _eval_cast(expr: Call, batch: RecordBatch):
         return (torch.div(local, MICROS_PER_DAY, rounding_mode="floor")
                 .to(torch.int32), validity, None)
     if target.is_string and t.is_string:
-        return data, validity, d  # char <-> varchar share dictionary codes
+        if (target.kind == "varbinary") == (t.kind == "varbinary"):
+            return data, validity, d  # char <-> varchar share codes
+        return _recode(data, validity, d, t, target)
     if target.kind == t.kind:
         return data, validity, d
     raise TypeError(f"cast {t} -> {target} unsupported on device")
+
+
+def _recoded_strings(values, source: SqlType, target: SqlType) -> np.ndarray:
+    """A string cast's dictionary entries: varchar / char -> varbinary
+    encodes each as UTF-8 (as ``to_utf8``; a varbinary entry is the latin-1
+    image of its bytes), varbinary -> varchar / char decodes each (as
+    ``from_utf8``, an invalid sequence replaced), and char <-> varchar
+    keeps them.  The JAX package keeps them in every case, so that
+    ``cast('é' as varbinary)`` is ``b'\\xe9'`` there (ROADMAP C25)."""
+    values = np.asarray(values, dtype=str)
+    if target.kind == "varbinary" and source.kind != "varbinary":
+        return np.array([v.encode("utf-8").decode("latin-1")
+                         for v in values], dtype=str)
+    if source.kind == "varbinary" and target.kind != "varbinary":
+        return np.array([v.encode("latin-1").decode("utf-8",
+                                                    errors="replace")
+                         for v in values], dtype=str)
+    return values
+
+
+def _recode(data, validity, d, source: SqlType, target: SqlType):
+    """A cast between varbinary and the text kinds on the device: the
+    dictionary rewritten on the host (``_recoded_strings``), and the codes
+    remapped where two entries became one string, so that equal strings
+    keep one code."""
+    if d is None:
+        raise TypeError(f"cast {source} -> {target}: no dictionary")
+    entries = _recoded_strings(d, source, target)
+    new_dict, inverse = np.unique(entries, return_inverse=True)
+    if len(new_dict) == len(entries) and np.array_equal(new_dict, entries):
+        return data, validity, new_dict
+    table = to_device(inverse.astype(np.int32), data.device)
+    codes = take_clamped(table, data.reshape(-1).to(torch.int64))
+    return codes.reshape(data.shape), validity, new_dict  # 0-d: a constant
 
 
 # ------------------------------------------------------------ array/map fns
@@ -1571,8 +1607,8 @@ def _eval_strings(expr: Expr, values: np.ndarray):
             out = np.where(cond, val, out)
         return out
     if fn == "cast":
-        if expr.type.is_string:  # identity / char-family casts keep text
-            return np.asarray(args[0], dtype=str)
+        if expr.type.is_string:  # between string kinds
+            return _recoded_strings(args[0], expr.args[0].type, expr.type)
         if expr.type.kind == "decimal":
             scale = _scale_of(expr.type)
             return np.array(

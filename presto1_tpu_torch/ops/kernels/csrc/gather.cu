@@ -8,7 +8,7 @@
 // move of the engine: rows after a sort, representatives of groups, the
 // survivors of a compaction.
 //
-// Two bodies.
+// Three bodies.
 //
 // `gather_rows_kernel` moves every column of a call through one index in
 // ONE launch, whatever the element widths.  The wrapper describes each
@@ -49,8 +49,45 @@
 // is moved whole by one group, the groups taking such tiles in turn, so a
 // sequential index costs one pass.
 //
-// `gather_strided_kernel` is the strided body of the earlier design, kept
-// for take_along_axis (an index per output element, not per row):
+// `take_along_axis_kernel` is numpy's take_along_axis on a 2-D x with an
+// index per output element (the probes `t1c` / `t1d`), for idx [rows,
+// width] and e = i * width + j:
+//
+//   axis 0:  out[e] = x[clamp(idx[e], 0, n - 1) * wx + j]     (wx == width)
+//   axis 1:  out[e] = x[i * wx + clamp(idx[e], 0, n - 1)]     (rows of x)
+//
+// The engine's two calls are width 1: the window's doubling-table lookup
+// (x [24 n, 1] int64, 12M frame ends, axis 0) and element_at's lane of an
+// [n, 2] int64 matrix (axis 1).  What bounds it: bytes -- the index read
+// and the output written once, and the sectors of x the index names.
+// element_at reads its own row, so every sector of x moves; the window's
+// ends name 1.5M sectors spread over a table 23 times the L2, so there the
+// card's random sector rate limits it.  The body of the earlier design
+// (`gather_strided_kernel` below) took ONE element a thread a grid-stride
+// step, so its index load and the dependent source load were the only
+// loads it had in flight; it divided the element number by the width in 64
+// bits (an emulated division) on every element although the width was 1;
+// it gave no cache hints; and its grid was capped at 16 blocks an SM.  It
+// took 0.1071 ms at the window's call and 0.0671 ms at element_at's, where
+// torch.gather took 0.1049 and 0.0661 (chip_smoke.py, NVIDIA H100 80GB
+// HBM3, 700 W, before this body existed).  This body: a thread takes
+// kTakeLoads elements a step, loaded as 16-byte index vectors issued
+// together (streaming loads, from a 16-byte boundary at or below the
+// index's first element: a view's `head` elements below it are skipped),
+// then every source load of the step
+// before any store, then the outputs as streaming stores (one vector of
+// the step's elements where the output is aligned); (i, j) from a
+// multiply-high by the width's magic number (Granlund and Montgomery),
+// never a division, and nothing at all where the width is 1; 32-bit
+// offsets where x and the element numbers fit 2^31; the source loads under
+// the row body's L2 policy (evict-last only where x fits half the L2); and
+// a grid of the occupancy the kernel reaches (cudaOccupancy...), every SM
+// full, grid-stride beyond.
+//
+// `gather_strided_kernel` is the strided body of the earlier design, no
+// longer reached by the engine: chip_smoke.py times it beside the two
+// bodies above (the earlier gather_rows launch pattern and
+// take_along_axis):
 //
 //   g      = clamp(idx[i * irs + j * ics], 0, n - 1)
 //   out[e] = src[g * sgs + i * sis + j * sjs]        e = i * width + j
@@ -75,6 +112,7 @@ constexpr int kMaxUnits = 64;  // units one launch of the row body takes
 constexpr int kLoads = 16;     // source words a thread keeps in flight
 constexpr int kRows = 4;       // output rows a thread takes (R)
 constexpr int kMaxPairs = 32;  // pairs of one launch of the strided body
+constexpr int kTakeLoads = 8;  // elements a thread of take_along_axis takes
 
 // ------------------------------------------------------------ the row body
 
@@ -286,6 +324,209 @@ int launch_rows(const Params& p, bool wide, dim3 grid, cudaStream_t s) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---------------------------------------------- the take_along_axis body
+
+struct TakeParams {
+  const void* x;    // [rows of x, wx] elements of 2^lt bytes
+  const void* idx;  // the 16-byte boundary at or below idx's element 0
+  void* out;        // [total] elements of 2^lt bytes
+  int64_t total;    // index elements: rows * width
+  int64_t n;        // length of the gathered axis, >= 1
+  int64_t wx;       // x's row in elements
+  int64_t width;    // idx's row in elements
+  int64_t magic;    // e / width = (t + ((e - t) >> 1)) >> shift,
+                    // t = mulhi(e, magic) in the offsets' bits (width >= 2)
+  int32_t shift;
+  int32_t head;     // index elements between `idx` and element 0
+  int32_t keep;     // x fits the L2 budget: evict-last source loads
+  int32_t vec_out;  // head 0 and out 16-byte aligned: a vector store a step
+};
+
+// e / width for width >= 2, by the magic number (no division)
+__device__ __forceinline__ uint32_t div_width(uint32_t e, const TakeParams& p) {
+  const uint32_t t = __umulhi(e, static_cast<uint32_t>(p.magic));
+  return (t + ((e - t) >> 1)) >> p.shift;
+}
+
+__device__ __forceinline__ uint64_t div_width(uint64_t e, const TakeParams& p) {
+  const uint64_t t = __umul64hi(e, static_cast<uint64_t>(p.magic));
+  return (t + ((e - t) >> 1)) >> p.shift;
+}
+
+// one 16-byte index vector, streaming (evict-first)
+template <typename I>
+__device__ __forceinline__ void load_index_vector(const uint4* p,
+                                                  I (&ix)[16 / sizeof(I)]) {
+  uint32_t a, b, c, d;
+  asm("ld.global.cs.v4.u32 {%0, %1, %2, %3}, [%4];"
+      : "=r"(a), "=r"(b), "=r"(c), "=r"(d) : "l"(p));
+  if constexpr (sizeof(I) == 4) {
+    ix[0] = static_cast<I>(a);
+    ix[1] = static_cast<I>(b);
+    ix[2] = static_cast<I>(c);
+    ix[3] = static_cast<I>(d);
+  } else {
+    ix[0] = static_cast<I>((static_cast<uint64_t>(b) << 32) | a);
+    ix[1] = static_cast<I>((static_cast<uint64_t>(d) << 32) | c);
+  }
+}
+
+// V consecutive output elements of 2^LT bytes as one streaming store (two
+// for 32 bytes); `d` is aligned to their bytes
+template <int LT, int V>
+__device__ __forceinline__ void store_vector(char* d,
+                                             const uint64_t (&v)[V]) {
+  constexpr int kBytes = V << LT;
+  if constexpr (kBytes == 32 || (kBytes == 16 && LT == 3)) {
+#pragma unroll
+    for (int h = 0; h < kBytes / 16; ++h)
+      asm volatile("st.global.cs.v2.u64 [%0], {%1, %2};"
+                   :: "l"(d + 16 * h), "l"(v[2 * h]), "l"(v[2 * h + 1])
+                   : "memory");
+  } else if constexpr (kBytes == 16) {  // four 4-byte elements
+    asm volatile("st.global.cs.v4.u32 [%0], {%1, %2, %3, %4};"
+                 :: "l"(d), "r"(static_cast<uint32_t>(v[0])),
+                    "r"(static_cast<uint32_t>(v[1])),
+                    "r"(static_cast<uint32_t>(v[2])),
+                    "r"(static_cast<uint32_t>(v[3]))
+                 : "memory");
+  } else {  // 2, 4 or 8 bytes: the elements packed into one word
+    constexpr int kBits = 8 << LT;
+    uint64_t w = 0;
+#pragma unroll
+    for (int k = 0; k < V; ++k)
+      w |= (v[k] & ((1ull << kBits) - 1)) << (k * kBits);
+    if constexpr (kBytes == 8)
+      __stcs(reinterpret_cast<unsigned long long*>(d),
+             static_cast<unsigned long long>(w));
+    else if constexpr (kBytes == 4)
+      __stcs(reinterpret_cast<unsigned int*>(d), static_cast<unsigned int>(w));
+    else
+      __stcs(reinterpret_cast<unsigned short*>(d),
+             static_cast<unsigned short>(w));
+  }
+}
+
+// A thread takes U = kTakeLoads / V index vectors of V elements a step
+// (vector k of the block's step at k * kThreads + threadIdx.x, so that each
+// load instruction of a warp reads 512 consecutive bytes), grid-stride.
+// Vector q holds the elements q * V - head + [0, V); those outside
+// [0, total) are neither loaded from x nor stored.
+template <int LT, typename I, typename Off, int kAxis>
+__global__ void __launch_bounds__(kThreads)
+take_along_axis_kernel(const __grid_constant__ TakeParams p) {
+  constexpr int V = 16 / static_cast<int>(sizeof(I));
+  constexpr int U = kTakeLoads / V;
+  const uint64_t pol = source_policy(p.keep != 0);
+  const char* __restrict__ x = static_cast<const char*>(p.x);
+  char* __restrict__ out = static_cast<char*>(p.out);
+  const uint4* __restrict__ iv = static_cast<const uint4*>(p.idx);
+  const int64_t imax = sizeof(I) == 4 ? INT32_MAX : INT64_MAX;
+  const I hi = static_cast<I>(p.n - 1 < imax ? p.n - 1 : imax);
+  const bool one = p.width == 1;
+  const Off wx = static_cast<Off>(p.wx);
+  const Off width = static_cast<Off>(p.width);
+  const int64_t vectors = (p.head + p.total + V - 1) / V;
+  const int64_t step = static_cast<int64_t>(gridDim.x) * kThreads * U;
+  for (int64_t q0 = static_cast<int64_t>(blockIdx.x) * kThreads * U +
+                    threadIdx.x;
+       q0 < vectors; q0 += step) {
+    I ix[U][V];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int64_t q = q0 + static_cast<int64_t>(u) * kThreads;
+      if (q < vectors) {
+        load_index_vector<I>(iv + q, ix[u]);
+      } else {
+#pragma unroll
+        for (int v = 0; v < V; ++v) ix[u][v] = I{0};
+      }
+    }
+    // every source load of the step before any store
+    uint64_t val[U][V];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+#pragma unroll
+      for (int v = 0; v < V; ++v) {
+        const int64_t e = (q0 + static_cast<int64_t>(u) * kThreads) * V + v -
+                          p.head;
+        val[u][v] = 0;
+        if (e < 0 || e >= p.total) continue;
+        const I y = ix[u][v];
+        const Off g = static_cast<Off>(y < 0 ? I{0} : (y > hi ? hi : y));
+        const Off oe = static_cast<Off>(e);
+        Off off;
+        if constexpr (kAxis == 0) {
+          off = one ? g : g * wx + (oe - div_width(oe, p) * width);
+        } else {
+          off = (one ? oe : div_width(oe, p)) * wx + g;
+        }
+        // the element offset fits Off; its byte offset may not
+        val[u][v] = load_word<LT>(x + (static_cast<uint64_t>(off) << LT),
+                                  pol);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int64_t q = q0 + static_cast<int64_t>(u) * kThreads;
+      const int64_t e0 = q * V - p.head;
+      if (p.vec_out && e0 >= 0 && e0 + V <= p.total) {
+        store_vector<LT, V>(out + (e0 << LT), val[u]);
+        continue;
+      }
+#pragma unroll
+      for (int v = 0; v < V; ++v) {
+        const int64_t e = e0 + v;
+        if (e >= 0 && e < p.total) store_word<LT>(out + (e << LT), val[u][v]);
+      }
+    }
+  }
+}
+
+template <int LT, typename I, typename Off, int kAxis>
+int take_variant(const TakeParams* p, int blocks, cudaStream_t s,
+                 int* blocks_per_sm) {
+  auto kernel = take_along_axis_kernel<LT, I, Off, kAxis>;
+  if (blocks_per_sm != nullptr)
+    return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        blocks_per_sm, kernel, kThreads, 0));
+  kernel<<<blocks, kThreads, 0, s>>>(*p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int LT, typename I>
+int take_by_offsets(const TakeParams* p, int wide, int axis, int blocks,
+                    cudaStream_t s, int* bps) {
+  if (wide)
+    return axis == 0 ? take_variant<LT, I, uint64_t, 0>(p, blocks, s, bps)
+                     : take_variant<LT, I, uint64_t, 1>(p, blocks, s, bps);
+  return axis == 0 ? take_variant<LT, I, uint32_t, 0>(p, blocks, s, bps)
+                   : take_variant<LT, I, uint32_t, 1>(p, blocks, s, bps);
+}
+
+template <int LT>
+int take_by_index(const TakeParams* p, int idx_w, int wide, int axis,
+                  int blocks, cudaStream_t s, int* bps) {
+  if (idx_w == 4)
+    return take_by_offsets<LT, int32_t>(p, wide, axis, blocks, s, bps);
+  if (idx_w == 8)
+    return take_by_offsets<LT, int64_t>(p, wide, axis, blocks, s, bps);
+  return -1;
+}
+
+// the variant's launch (bps null) or its occupancy in blocks an SM
+int take_dispatch(const TakeParams* p, int lt, int idx_w, int wide, int axis,
+                  int blocks, cudaStream_t s, int* bps) {
+  if (axis != 0 && axis != 1) return -2;
+  switch (lt) {
+    case 0: return take_by_index<0>(p, idx_w, wide, axis, blocks, s, bps);
+    case 1: return take_by_index<1>(p, idx_w, wide, axis, blocks, s, bps);
+    case 2: return take_by_index<2>(p, idx_w, wide, axis, blocks, s, bps);
+    case 3: return take_by_index<3>(p, idx_w, wide, axis, blocks, s, bps);
+    default: return -1;
+  }
+}
+
 // -------------------------------------------------------- the strided body
 
 struct Table {
@@ -351,7 +592,8 @@ int launch_strided_idx(const Table& tab, const void* idx, int idx_w,
 
 // The layout and geometry this library was built with, for the wrapper to
 // check against its ctypes mirror before any launch: {kThreads, kMaxUnits,
-// kLoads, kMaxPairs, sizeof(Unit), sizeof(Params), kRows}.
+// kLoads, kMaxPairs, sizeof(Unit), sizeof(Params), kRows, kTakeLoads,
+// sizeof(TakeParams)}.
 extern "C" void p1_gather_geometry(int64_t* out) {
   out[0] = kThreads;
   out[1] = kMaxUnits;
@@ -360,6 +602,35 @@ extern "C" void p1_gather_geometry(int64_t* out) {
   out[4] = sizeof(Unit);
   out[5] = sizeof(Params);
   out[6] = kRows;
+  out[7] = kTakeLoads;
+  out[8] = sizeof(TakeParams);
+}
+
+// take_along_axis: `params` a TakeParams, `lt` log2 of x's element bytes
+// (0..3), `idx_w` the index width (4 or 8), `wide` 64-bit offsets, `axis`
+// 0 or 1, `blocks` the grid.  Returns cudaGetLastError() after the launch,
+// or a negative code for an argument the kernel does not take.
+extern "C" int p1_take_along_axis(const void* params, int lt, int idx_w,
+                                  int wide, int axis, int blocks,
+                                  void* stream) {
+  const TakeParams* p = static_cast<const TakeParams*>(params);
+  if (p->n < 1 || p->total < 1 || p->width < 1 || p->wx < 1 || blocks < 1)
+    return -3;
+  if (p->head < 0 || p->head * idx_w >= 16 ||
+      reinterpret_cast<uintptr_t>(p->idx) % 16 != 0)
+    return -4;
+  if (p->width > 1 && (p->shift < 0 || p->shift > 63)) return -5;
+  return take_dispatch(p, lt, idx_w, wide, axis, blocks,
+                       static_cast<cudaStream_t>(stream), nullptr);
+}
+
+// Blocks an SM that the occupancy calculator gives the take_along_axis
+// variant (`lt`, `idx_w`, `wide`, `axis`), or a negative code.
+extern "C" int p1_take_blocks_per_sm(int lt, int idx_w, int wide, int axis) {
+  int blocks = 0;
+  const int err = take_dispatch(nullptr, lt, idx_w, wide, axis, 1, nullptr,
+                                &blocks);
+  return err == 0 ? blocks : (err > 0 ? -err : err);
 }
 
 // The row body: `p` describes the call (units, index, rows, n), `idx_w` the

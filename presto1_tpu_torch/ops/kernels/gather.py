@@ -19,13 +19,19 @@ Bound on an H100: memory.  The index is read and the output written once,
 coalesced; the source is read wherever the index says, a 32-byte sector for
 each element when the index is a random permutation, so a random gather is
 bound by the card's random sector rate, which falls as the source outgrows
-the L2.  ``csrc/gather.cu`` has two bodies: the row body (``gather_rows``:
+the L2.  ``csrc/gather.cu`` has three bodies: the row body (``gather_rows``:
 ``ROWS_PER_THREAD`` warp-interleaved rows a thread, the loads of a chunk of
 columns in flight before any store, evict-last loads of the sources and
 evict-first streams, column groups on ``blockIdx.y`` when the sources
 exceed half the L2, tiles whose indices stay local moved whole by one group
-in turn; the launch's shape is ``plan_gather``'s) and the strided body of
-the earlier design (``take_along_axis``: an index per element).
+in turn; the launch's shape is ``plan_gather``'s), the take body
+(``take_along_axis``: ``TAKE_LOADS`` elements a thread from 16-byte index
+vectors, every source load of a step in flight before any store, the row
+index from a multiply-high by the width's magic number and none where the
+width is 1, the row body's L2 policy; the launch's shape is
+``plan_take``'s), and the strided body of the earlier design, which no
+engine path reaches (``chip_smoke.py`` times it as the earlier
+``take_along_axis``).
 
 The ``*_plain`` functions are the same functions in plain tensor ops.  The
 wrappers take them only for tensors that lie on the CPU; for CUDA tensors
@@ -45,7 +51,7 @@ from . import _build
 
 # launches of the row body by ``gather_rows`` (and nothing else)
 LAUNCHES = 0
-# launches of the strided body by ``take_along_axis`` (and nothing else)
+# launches of the take body by ``take_along_axis`` (and nothing else)
 TAKE_LAUNCHES = 0
 
 # the geometry of csrc/gather.cu (checked against the library)
@@ -59,6 +65,7 @@ BLOCKS_PER_SM = 64  # blocks an SM, at most, in a one-group grid
 # probes several tiles at once, and enough that a group fills the card (4,
 # 16 and 64 measured: 16 the best compromise over the main paths' calls)
 GROUP_BLOCKS_PER_SM = 16
+TAKE_LOADS = 8      # elements a thread of the take body has in flight
 
 _IDX_DTYPES = (torch.int32, torch.int64)
 _WIDTHS = (1, 2, 4, 8)
@@ -118,6 +125,61 @@ def plan_gather(rows: int, n: int, units: Sequence[tuple], sms: int,
     return GatherPlan(wide, blocks, groups, per_group, keep)
 
 
+# TakeParams of csrc/gather.cu: x, idx (16-byte boundary), out, total, n,
+# wx, width, magic, shift, head, keep, vec_out
+_TAKE = struct.Struct("<QQQqqqqqiiii")
+
+
+class TakePlan(NamedTuple):
+    wide: bool     # 64-bit offsets
+    blocks: int    # the grid (grid-stride beyond)
+    base: int      # the 16-byte boundary at or below the index's element 0
+    head: int      # index elements between ``base`` and element 0
+    vec_out: bool  # a vector store a step: head 0, output 16-byte aligned
+    keep: bool     # x fits half the L2: evict-last source loads
+    magic: int     # e // width by a multiply-high (``take_magic``)
+    shift: int
+
+
+def take_magic(width: int, bits: int) -> tuple:
+    """``(magic, shift)`` with ``e // width == (t + ((e - t) >> 1)) >>
+    shift``, ``t = (e * magic) >> bits``, for every ``0 <= e < 2**bits``
+    (Granlund and Montgomery's division by an invariant integer; ``magic <
+    2**bits``); ``(0, 0)`` for width 1, which divides nothing."""
+    if width < 1:
+        raise ValueError(f"width {width} < 1")
+    if width == 1:
+        return 0, 0
+    log = (width - 1).bit_length()  # ceil(log2(width))
+    return ((1 << bits) * ((1 << log) - width)) // width + 1, log - 1
+
+
+def plan_take(total: int, width: int, x_numel: int, x_bytes: int,
+              idx_bytes: int, idx_addr: int, out_addr: int, sms: int,
+              occupancy, l2_bytes: int) -> TakePlan:
+    """The launch of the take body for ``total`` index elements of
+    ``idx_bytes`` at ``idx_addr`` (rows of ``width``) into an output at
+    ``out_addr``, from an ``x`` of ``x_numel`` elements of ``x_bytes``.
+
+    32-bit offsets where x's elements and the element numbers stay below
+    2^31; the index read as 16-byte vectors from the boundary at or below
+    its first element; evict-last source loads only where x fits half the
+    L2 (the row body's budget); ``TAKE_LOADS`` elements a thread a step and
+    at most ``occupancy(wide)`` blocks an SM (the kernel's occupancy, asked
+    of the library), grid-stride beyond."""
+    wide = x_numel >= 2 ** 31 or total >= 2 ** 31
+    base = idx_addr - idx_addr % 16
+    head = (idx_addr - base) // idx_bytes
+    per = 16 // idx_bytes
+    vectors = -(-(head + total) // per)
+    per_block = THREADS * (TAKE_LOADS // per)
+    blocks = max(1, min(-(-vectors // per_block), sms * occupancy(wide)))
+    magic, shift = take_magic(width, 64 if wide else 32)
+    return TakePlan(wide, blocks, base, head,
+                    head == 0 and out_addr % 16 == 0,
+                    x_numel * x_bytes <= l2_bytes // 2, magic, shift)
+
+
 def _clamped(idx: torch.Tensor, n: int) -> torch.Tensor:
     return idx.to(torch.int64).clamp(0, n - 1)
 
@@ -158,12 +220,17 @@ def _library():
     lib.p1_gather_strided.argtypes = [pp, pp, i, i, p, i, i64, i64, i64,
                                       ctypes.POINTER(i64), i, p]
     lib.p1_gather_strided.restype = i
+    lib.p1_take_along_axis.argtypes = [ctypes.c_char_p, i, i, i, i, i, p]
+    lib.p1_take_along_axis.restype = i
+    lib.p1_take_blocks_per_sm.argtypes = [i, i, i, i]
+    lib.p1_take_blocks_per_sm.restype = i
     lib.p1_gather_geometry.argtypes = [ctypes.POINTER(i64)]
     lib.p1_gather_geometry.restype = None
-    got = (i64 * 7)()
+    got = (i64 * 9)()
     lib.p1_gather_geometry(got)
     want = (THREADS, MAX_UNITS, LOADS, MAX_PAIRS,
-            struct.calcsize("<" + _UNIT), _packer(1).size, ROWS_PER_THREAD)
+            struct.calcsize("<" + _UNIT), _packer(1).size, ROWS_PER_THREAD,
+            TAKE_LOADS, _TAKE.size)
     if tuple(got) != want:
         raise RuntimeError(f"csrc/gather.cu's geometry {tuple(got)} is not "
                            f"this module's {want}")
@@ -230,27 +297,50 @@ def _gather(sources, outs, idx: torch.Tensor) -> None:
         LAUNCHES += 1
 
 
-def _launch_strided(srcs, dsts, idx, rows: int, width: int, n: int,
-                    strides) -> None:
-    """One launch of the strided body: ``srcs`` / ``dsts`` are at most
-    ``MAX_PAIRS`` contiguous tensors of one element width on ``idx``'s
-    device."""
+# blocks an SM of each take-body variant: (device, lt, index bytes, wide,
+# axis) -> the occupancy the library reports
+_TAKE_OCCUPANCY = {}
+
+
+def _take_occupancy(lib, dev, key) -> int:
+    got = _TAKE_OCCUPANCY.get((dev.index,) + key)
+    if got is None:
+        got = _build.launch_on(
+            dev, lambda stream: lib.p1_take_blocks_per_sm(*key))
+        if got < 1:
+            raise RuntimeError(f"take_along_axis occupancy query failed: "
+                               f"{got} (variant {key})")
+        _TAKE_OCCUPANCY[(dev.index,) + key] = got
+    return got
+
+
+def _take(x: torch.Tensor, idx: torch.Tensor, axis: int,
+          out: torch.Tensor) -> None:
+    """One launch of the take body: contiguous ``x`` and ``idx`` (at least
+    one element each, the gathered axis not empty) into ``out``."""
+    global TAKE_LAUNCHES
     lib = _library()
-    dev = idx.device
-    count = len(srcs)
-    blocks = max(1, min(-(-(rows * width) // THREADS),
-                        _build.sm_count(dev) * 16))
-    ptrs = ctypes.c_void_p * count
-    st = (ctypes.c_int64 * 5)(*strides)
-    err = _build.launch_on(dev, lambda stream: lib.p1_gather_strided(
-        ptrs(*[s.data_ptr() for s in srcs]),
-        ptrs(*[d.data_ptr() for d in dsts]), count,
-        srcs[0].element_size(), idx.data_ptr(), idx.element_size(),
-        rows, width, n, st, blocks, stream))
+    dev = x.device
+    lt, iw = _LOG2[x.element_size()], idx.element_size()
+    width = idx.shape[1]
+    total = idx.numel()
+    plan = plan_take(
+        total, width, x.numel(), x.element_size(), iw, idx.data_ptr(),
+        out.data_ptr(), _build.sm_count(dev),
+        lambda wide: _take_occupancy(lib, dev, (lt, iw, int(wide), axis)),
+        _build.l2_bytes(dev))
+    magic = plan.magic - (1 << 64) if plan.magic >= 1 << 63 else plan.magic
+    params = _TAKE.pack(x.data_ptr(), plan.base, out.data_ptr(), total,
+                        x.shape[axis], x.shape[1], width, magic, plan.shift,
+                        plan.head, int(plan.keep), int(plan.vec_out))
+    err = _build.launch_on(dev, lambda stream: lib.p1_take_along_axis(
+        params, lt, iw, int(plan.wide), axis, plan.blocks, stream))
     if err != 0:
         raise RuntimeError(
-            f"gather kernel launch failed: error {err} (count={count}, "
-            f"width={srcs[0].element_size()}, rows={rows}, n={n})")
+            f"take_along_axis kernel launch failed: error {err} (x="
+            f"{tuple(x.shape)} {x.dtype}, idx={tuple(idx.shape)} "
+            f"{idx.dtype}, axis={axis}, plan={plan})")
+    TAKE_LAUNCHES += 1
 
 
 def gather_rows(sources: Sequence[torch.Tensor],
@@ -305,8 +395,7 @@ def take_along_axis(x: torch.Tensor, idx: torch.Tensor,
                     axis: int) -> torch.Tensor:
     """``numpy.take_along_axis(x, clamp(idx), axis)`` for a contiguous 2-D
     ``x`` and a contiguous 2-D int32/int64 ``idx`` that matches ``x`` on the
-    other axis."""
-    global TAKE_LAUNCHES
+    other axis.  On a CUDA device one launch of the take body."""
     if not isinstance(x, torch.Tensor) or x.dim() != 2:
         raise ValueError("x: expected a 2-D tensor")
     _check_idx(idx, 2)
@@ -334,10 +423,6 @@ def take_along_axis(x: torch.Tensor, idx: torch.Tensor,
             raise IndexError("take_along_axis over an empty axis")
         return x.new_zeros((rows, width))
     out = x.new_empty((rows, width))
-    if rows * width == 0:
-        return out
-    wx = x.shape[1]
-    strides = (width, 1, wx, 0, 1) if axis == 0 else (width, 1, 1, wx, 0)
-    _launch_strided([x], [out], idx, rows, width, n, strides)
-    TAKE_LAUNCHES += 1
+    if rows * width:
+        _take(x, idx, axis, out)
     return out

@@ -168,6 +168,110 @@ def test_dyncopy_plan_tiles_cover_every_word(col_bytes):
     assert 1 <= blocks <= max(1, min(tiles, H100_SMS * DC.BLOCKS_PER_SM))
 
 
+# -------------------------------------------------------------- plan_take
+
+
+@pytest.mark.parametrize("bits", [32, 64])
+@pytest.mark.parametrize("width", [2, 3, 5, 7, 9, 33, 128, 1000, 2 ** 20 + 7,
+                                   2 ** 31 - 1])
+def test_take_magic_divides_every_element_number(width, bits):
+    """The take body's row number: a multiply-high by the width's magic
+    number and two shifts equal ``e // width`` for element numbers across
+    the offsets' whole range."""
+    rng = np.random.RandomState(width % 997)
+    magic, shift = G.take_magic(width, bits)
+    assert 0 < magic < 2 ** bits and 0 <= shift < bits
+    top = 2 ** bits
+    es = {0, 1, width - 1, width, width + 1, 2 * width - 1, top - 1,
+          top - width, (top // width) * width, (top // width) * width - 1}
+    es |= {int(v) for v in rng.randint(0, 2 ** 31, 300)}
+    es |= {int(v) * 2 ** (bits - 31) + int(u) for v, u in
+           zip(rng.randint(0, 2 ** 31, 300), rng.randint(0, 2 ** 31, 300))
+           if int(v) * 2 ** (bits - 31) + int(u) < top}
+    for e in es:
+        t = (e * magic) >> bits
+        assert (t + ((e - t) >> 1)) >> shift == e // width, e
+
+
+def test_take_magic_of_width_one_divides_nothing():
+    assert G.take_magic(1, 32) == G.take_magic(1, 64) == (0, 0)
+    with pytest.raises(ValueError):
+        G.take_magic(0, 32)
+
+
+def _take_plan(total=1000, width=1, x_numel=1000, x_bytes=8, idx_bytes=8,
+               idx_addr=4096, out_addr=8192, occupancy=lambda wide: 8):
+    return G.plan_take(total, width, x_numel, x_bytes, idx_bytes, idx_addr,
+                       out_addr, H100_SMS, occupancy, H100_L2)
+
+
+@pytest.mark.parametrize("x_numel,total,wide", [
+    (2 ** 31 - 1, 1000, False), (2 ** 31, 1000, True),
+    (1000, 2 ** 31 - 1, False), (1000, 2 ** 31, True),
+    (24 * 6_002_010, 12_004_020, False)])
+def test_plan_take_32_bit_offsets_only_where_they_fit(x_numel, total, wide):
+    plan = _take_plan(total=total, x_numel=x_numel)
+    assert plan.wide == wide
+    assert (plan.magic, plan.shift) == (0, 0)  # width 1
+    plan = _take_plan(total=total, width=3, x_numel=x_numel)
+    assert (plan.magic, plan.shift) == G.take_magic(3, 64 if wide else 32)
+
+
+@pytest.mark.parametrize("idx_bytes", [4, 8])
+@pytest.mark.parametrize("lo", [0, 1, 2, 3])
+def test_plan_take_reads_the_index_from_a_16_byte_boundary(idx_bytes, lo):
+    """The index is read as 16-byte vectors from the boundary at or below
+    its first element: a view ``lo`` elements in has ``head`` elements
+    below it; the output is stored a vector at a time only where both
+    start on the boundary."""
+    addr = 4096 + lo * idx_bytes
+    plan = _take_plan(idx_bytes=idx_bytes, idx_addr=addr)
+    assert plan.base == addr - addr % 16 and plan.base % 16 == 0
+    assert plan.head == (addr % 16) // idx_bytes < 16 // idx_bytes
+    assert plan.vec_out == (plan.head == 0)
+    assert not _take_plan(idx_bytes=idx_bytes, out_addr=8200).vec_out
+
+
+def test_plan_take_keeps_x_only_where_it_fits_half_the_l2():
+    half = H100_L2 // 2
+    assert _take_plan(x_numel=half // 8).keep
+    assert not _take_plan(x_numel=half // 8 + 1).keep
+    assert _take_plan(x_numel=half, x_bytes=1).keep
+
+
+@pytest.mark.parametrize("total", [1, 7, 2048, 2049, 12_004_020, 10 ** 9])
+@pytest.mark.parametrize("idx_bytes", [4, 8])
+def test_plan_take_grid_from_the_occupancy(total, idx_bytes):
+    """TAKE_LOADS elements a thread, grid-stride beyond the occupancy the
+    library reports for the chosen variant (asked with its offsets)."""
+    asked = []
+
+    def occupancy(wide):
+        asked.append(wide)
+        return 6
+
+    plan = _take_plan(total=total, idx_bytes=idx_bytes, x_numel=10 ** 9,
+                      occupancy=occupancy)
+    vectors = -(-total // (16 // idx_bytes))
+    per_block = G.THREADS * G.TAKE_LOADS // (16 // idx_bytes)
+    assert plan.blocks == max(1, min(-(-vectors // per_block),
+                                     H100_SMS * 6))
+    assert asked == [plan.wide]
+    assert plan.blocks * per_block >= vectors or plan.blocks == H100_SMS * 6
+
+
+def test_plan_take_at_the_engine_calls():
+    """The window's doubling-table lookup (x [24 n, 1] int64, 12,004,020
+    ends, axis 0) and element_at's lane of [n, 2] int64: 32-bit offsets,
+    no division, x too large to keep in L2, a full card."""
+    n = 6_002_010
+    window = _take_plan(total=2 * n, x_numel=24 * n)
+    element_at = _take_plan(total=n, x_numel=2 * n)
+    for plan in (window, element_at):
+        assert not plan.wide and not plan.keep and plan.vec_out
+        assert (plan.magic, plan.shift) == (0, 0)
+        assert plan.blocks == H100_SMS * 8
+
 # ------------------------------------------------- layouts against sources
 
 
@@ -219,6 +323,13 @@ def test_gather_geometry_and_params_match_the_source():
     assert _expanded(G._packer(G.MAX_UNITS).format) == fmt
     for count in (1, 9, G.MAX_UNITS):
         assert G._packer(count).size == struct.calcsize(fmt)
+
+
+def test_take_params_match_the_source():
+    text = _source("gather")
+    c = _constants(text)
+    assert G.TAKE_LOADS == c["kTakeLoads"]
+    assert G._TAKE.format == "<" + _struct_format(text, "TakeParams", c)
 
 
 def test_dyncopy_geometry_and_params_match_the_source():
@@ -298,6 +409,128 @@ def _fake_library(monkeypatch, module, lib):
     monkeypatch.setattr(_build, "launch_on", lambda dev, launch: launch(0))
     monkeypatch.setattr(_build, "sm_count", lambda dev: H100_SMS)
     monkeypatch.setattr(_build, "l2_bytes", lambda dev: H100_L2)
+
+
+class _FakeTake:
+    """Stands for the gather library's take body: records each launch and
+    carries it out on host memory from the packed ``TakeParams`` alone, the
+    row number by the magic number the wrapper packed."""
+
+    def __init__(self):
+        self.launches = []
+        self.asked = []
+
+    def p1_take_blocks_per_sm(self, lt, idx_w, wide, axis):
+        self.asked.append((lt, idx_w, wide, axis))
+        return 8
+
+    def p1_take_along_axis(self, params, lt, idx_w, wide, axis, blocks,
+                           stream):
+        (x, base, out, total, n, wx, width, magic, shift, head, keep,
+         vec_out) = G._TAKE.unpack(params)
+        self.launches.append({"head": head, "wide": wide, "axis": axis,
+                              "blocks": blocks, "vec_out": vec_out})
+        assert base % 16 == 0 and 0 <= head < 16 // idx_w
+        bits, magic = (64 if wide else 32), magic % 2 ** 64
+        ix = np.frombuffer(_read(base, (head + total) * idx_w).tobytes(),
+                           np.int32 if idx_w == 4 else np.int64)[head:]
+        g = np.clip(ix.astype(np.int64), 0, n - 1)
+        e = np.arange(total)
+        if width == 1:
+            i, j = e, np.zeros_like(e)
+        else:
+            t = np.array([(int(v) * magic) >> bits for v in e], np.int64)
+            i = (t + ((e - t) >> 1)) >> shift
+            assert np.array_equal(i, e // width)
+            j = e - i * width
+        off = g * wx + j if axis == 0 else i * wx + g
+        w = 1 << lt
+        src = _read(x, (int(off.max()) + 1) * w).reshape(-1, w)
+        _write(out, src[off].reshape(-1))
+        return 0
+
+
+@pytest.mark.parametrize("axis,rows,width,xshape", [
+    (0, 101, 33, (257, 33)), (1, 257, 9, (257, 33)), (0, 777, 1, (1000, 1)),
+    (1, 300, 1, (300, 2)), (0, 1, 1, (5, 1)), (1, 1, 1, (1, 1))])
+@pytest.mark.parametrize("idx_dtype", [np.int32, np.int64])
+@pytest.mark.parametrize("lo", [0, 1, 3])
+def test_take_along_axis_one_launch_of_the_take_body(monkeypatch, axis, rows,
+                                                     width, xshape,
+                                                     idx_dtype, lo):
+    """Both axes, width 1 and wider, both index widths, index views off the
+    16-byte boundary, indices out of range on both sides: ONE launch of the
+    take body, whose descriptor alone gives numpy's take_along_axis of the
+    clamped index, for every element width."""
+    lib = _FakeTake()
+    _fake_library(monkeypatch, G, lib)
+    monkeypatch.setattr(G, "_TAKE_OCCUPANCY", {})
+    rng = np.random.RandomState(rows + width + lo)
+    n = xshape[axis]
+    flat = rng.randint(-3, n + 3, lo + rows * width).astype(idx_dtype)
+    idx_host = flat[lo:].reshape(rows, width)
+    idx = _fake(flat)[lo:].view(rows, width)
+    for dt in DTYPES:
+        x_host = _values(rng, xshape, dt)
+        before = (G.TAKE_LAUNCHES, G.LAUNCHES)
+        got = G.take_along_axis(_fake(x_host), idx, axis)
+        assert (G.TAKE_LAUNCHES - before[0], G.LAUNCHES - before[1]) == (1, 0)
+        want = np.take_along_axis(x_host, np.clip(idx_host, 0, n - 1), axis)
+        np.testing.assert_array_equal(_plain(got).numpy(), want)
+        assert _plain(got).dtype == _t(x_host).dtype
+    assert len(lib.launches) == len(DTYPES)
+    assert {d["head"] for d in lib.launches} == {
+        (idx.data_ptr() % 16) // idx.element_size()}
+    assert all(d["axis"] == axis and not d["wide"] for d in lib.launches)
+    assert {a[3] for a in lib.asked} == {axis}
+
+
+def test_take_along_axis_empty_index_launches_nothing(monkeypatch):
+    lib = _FakeTake()
+    _fake_library(monkeypatch, G, lib)
+    x = _fake(np.arange(12).reshape(4, 3))
+    got = G.take_along_axis(x, _fake(np.zeros((0, 3), np.int64)), 0)
+    assert tuple(got.shape) == (0, 3) and not lib.launches
+    with pytest.raises(IndexError):
+        G.take_along_axis(_fake(np.zeros((0, 3))),
+                          _fake(np.zeros((2, 3), np.int64)), 0)
+
+
+@pytest.mark.parametrize("shape,idx_shape,axis", [
+    ((5, 3), (0, 3), 0), ((5, 3), (1, 3), 0), ((1, 1), (1, 1), 1),
+    ((4, 6), (4, 1), 1), ((6, 4), (9, 4), 0), ((3, 7), (3, 11), 1)])
+@pytest.mark.parametrize("idx_dtype", [np.int32, np.int64])
+def test_take_along_axis_plain_matches_numpy(shape, idx_shape, axis,
+                                             idx_dtype):
+    """The plain version (what the wrapper runs on the CPU) against numpy's
+    take_along_axis of the clamped index: empty and one-element inputs,
+    wild indices far outside the axis."""
+    rng = np.random.RandomState(sum(shape) + sum(idx_shape))
+    x = rng.randint(-99, 99, shape)
+    n = shape[axis]
+    idx = rng.randint(-2 ** 30, 2 ** 30, idx_shape).astype(idx_dtype)
+    idx.flat[:2] = [-1, n] if idx.size >= 2 else idx.flat[:2]
+    want = np.take_along_axis(x, np.clip(idx, 0, n - 1), axis)
+    for fn in (G.take_along_axis, G.take_along_axis_plain):
+        np.testing.assert_array_equal(fn(_t(x), _t(idx), axis).numpy(), want)
+
+
+@pytest.mark.parametrize("bad", [
+    lambda x, i: G.take_along_axis(x[0], i, 0),
+    lambda x, i: G.take_along_axis(x, i[0], 0),
+    lambda x, i: G.take_along_axis(x, i.to(torch.int16), 0),
+    lambda x, i: G.take_along_axis(x, i, 2),
+    lambda x, i: G.take_along_axis(x, i[:, :2], 0),
+    lambda x, i: G.take_along_axis(x.t(), i.t(), 1),
+    lambda x, i: G.take_along_axis(x.to(torch.complex128), i, 0)])
+def test_take_along_axis_rejects(bad):
+    """The wrapper's argument checks: 2-D tensors, an int32/int64 index
+    matching x off the axis, axis 0 or 1, contiguous, 1/2/4/8-byte
+    elements."""
+    x = torch.arange(12).view(4, 3)
+    i = torch.zeros((4, 3), dtype=torch.int64)
+    with pytest.raises((TypeError, ValueError)):
+        bad(x, i)
 
 
 @pytest.mark.parametrize("idx_dtype", [np.int32, np.int64])
@@ -612,6 +845,29 @@ def test_gather_new_shapes_on_card(card, monkeypatch):
                                  _build.l2_bytes(card)).groups > 1
             for a, b in zip(G.gather_rows(srcs, idx), want):
                 assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_take_body_on_card(card):
+    """The take body against the plain version: both axes, width 1 and
+    wider, index views off the 16-byte grid, every element width, one
+    launch a call."""
+    rng = np.random.RandomState(23)
+    for dt in DTYPES:
+        x = _t(_values(rng, (999, 7), dt)).to(card)
+        for idt in (np.int32, np.int64):
+            for lo in range(4):
+                flat = _t(rng.randint(-9, 1009, lo + 500 * 7).astype(idt))
+                for axis, idx in ((0, flat.to(card)[lo:].view(500, 7)),
+                                  (1, flat.to(card)[lo:lo + 999 * 3]
+                                   .view(999, 3).remainder(9) - 1),
+                                  (1, flat.to(card)[lo:lo + 999]
+                                   .view(999, 1).remainder(9) - 1)):
+                    before = G.TAKE_LAUNCHES
+                    got = G.take_along_axis(x, idx.contiguous(), axis)
+                    assert G.TAKE_LAUNCHES - before == 1
+                    want = G.take_along_axis_plain(x, idx.contiguous(), axis)
+                    assert torch.equal(got, want)
 
 
 @pytest.mark.cuda

@@ -7,6 +7,7 @@ The CUDA kernels run only on a card: ``chip_smoke.py`` and the tests marked
 ``cuda`` below hold each path against these plain versions there.
 """
 
+import ctypes
 import re
 from pathlib import Path
 
@@ -178,6 +179,194 @@ def test_compact_plan_covers_the_mask(n, head, sms):
         assert chunk == 2 * S.THREADS and blocks in (1024, 1025)
 
 
+@pytest.mark.parametrize("n", [1, 15, 16, 17, 4095, 4096, 4097, 32_768,
+                               32_769, 6_002_010, 2 ** 31 + 5])
+@pytest.mark.parametrize("head", [0, 1, 15])
+def test_compact_route_covers_the_mask(n, head):
+    """The look-back's partition: tiles of THREADS * SPAN_WORDS words cover
+    the mask, one block a tile up to the occupancy's blocks on every SM."""
+    asked = []
+
+    def occupancy():
+        asked.append(1)
+        return 7
+
+    plan = S.compact_route(n, head, H100_SMS, occupancy)
+    words = -(-(head + n) // S.LANE_ROWS)
+    assert plan.route == "lookback" and asked == [1]
+    assert plan.tiles == -(-words // (S.THREADS * S.SPAN_WORDS))
+    assert (plan.tiles - 1) * S.THREADS * S.SPAN_WORDS < words
+    assert plan.blocks == min(plan.tiles, H100_SMS * 7) and plan.chunk == 0
+
+
+@pytest.mark.parametrize("n,route", [
+    (1, "lookback"), (4097, "lookback"), (2 ** 20 - 1, "lookback"),
+    (2 ** 20, "lookback"), (2_880_404, "lookback"),
+    (6_002_010, "lookback")])
+def test_compact_route_choice(n, route):
+    """``compact`` plans the look-back at every size; the two-pass body,
+    asked for by name, keeps ``compact_plan``'s partition and asks no
+    occupancy; an unknown route raises."""
+    occ = lambda: 8  # noqa: E731
+    plan = S.compact_route(n, 0, H100_SMS, occ)
+    assert plan.route == route and plan.chunk == 0
+    two = S.compact_route(n, 3, H100_SMS, lambda: 1 / 0, "two_pass")
+    assert (two.route, two.tiles) == ("two_pass", 0)
+    assert (two.blocks, two.chunk) == S.compact_plan(n, 3, H100_SMS)
+    with pytest.raises(ValueError):
+        S.compact_route(10, 0, H100_SMS, occ, "cooperative")
+
+
+@pytest.mark.parametrize("head", range(16))
+def test_compact_of_views_at_every_head_matches_reference(head):
+    """A mask view starting ``head`` bytes past a 16-byte boundary, the
+    capacity below, at and above the count and 0: the port's compaction
+    (its plain version on the CPU) against the JAX package's."""
+    rng = np.random.RandomState(head)
+    full = rng.rand(4129 + 16) < 0.3
+    view_host = full[head:head + 4129]
+    view = _t(full)[head:head + 4129]
+    assert view.data_ptr() % 16 == (_t(full).data_ptr() + head) % 16
+    k = int(view_host.sum())
+    for capacity in (0, k // 2, k, k + 7):
+        j_idx, j_count = j_seg.compact_indices(jnp.asarray(view_host),
+                                               capacity)
+        p_idx, p_count = S.compact(view, capacity)
+        np.testing.assert_array_equal(p_idx.numpy(), np.asarray(j_idx))
+        assert int(p_count) == int(j_count) == k
+
+
+@pytest.mark.parametrize("capacity", [0, 1, 9])
+def test_compact_of_an_empty_mask_matches_reference(capacity):
+    mask = np.zeros((0,), bool)
+    j_idx, j_count = j_seg.compact_indices(jnp.asarray(mask), capacity)
+    p_idx, p_count = S.compact(_t(mask), capacity)
+    np.testing.assert_array_equal(p_idx.numpy(), np.asarray(j_idx))
+    assert int(p_count) == int(j_count) == 0
+    assert p_count.dim() == 0 and p_idx.dtype == torch.int64
+
+
+def test_compact_state_is_kept_per_device_and_stream(monkeypatch):
+    """The look-back's state outside a graph capture: one zeroed buffer
+    per (device, stream), reused call after call; a call with more tiles
+    than it holds gets a larger one in its place."""
+    monkeypatch.setattr(S, "_STATE", {})
+    cpu = torch.device("cpu")
+    a = S._state(cpu, 5, 10, False)
+    assert a.dtype == torch.int64 and not bool(a.any())
+    assert a.numel() == S.STATE_WORDS + S.MIN_STATE_TILES
+    assert S._state(cpu, 5, S.MIN_STATE_TILES, False) is a
+    b = S._state(cpu, 6, 10, False)
+    assert b is not a
+    c = S._state(cpu, 5, S.MIN_STATE_TILES + 1, False)
+    assert c is not a and c.numel() == S.STATE_WORDS + S.MIN_STATE_TILES + 1
+    assert S._state(cpu, 5, 3, False) is c
+
+
+@pytest.mark.parametrize("captures", [1, 2, 5])
+def test_captured_compactions_take_reserved_states(monkeypatch, captures):
+    """In a graph capture each launch takes a zeroed buffer that
+    ``reserve_graph_states`` set aside, for good: never the stream's own
+    buffer, never one another launch took, none zeroed during the capture;
+    none left (or none large enough) raises."""
+    monkeypatch.setattr(S, "_STATE", {})
+    monkeypatch.setattr(S, "_SPARE", {})
+    monkeypatch.setattr(S, "_CAPTURED", [])
+    cpu = torch.device("cpu")
+    eager = S._state(cpu, 5, 10, False)
+    with pytest.raises(RuntimeError, match="reserve_graph_states"):
+        S._state(cpu, 5, 10, True)
+    S.reserve_graph_states(cpu, captures)
+    S.reserve_graph_states(cpu, 1, tiles=20)
+    got = [S._state(cpu, 5, 10, True) for _ in range(captures)]
+    assert all(st is not eager for st in got)
+    assert len({id(st) for st in got}) == captures
+    assert all(st.numel() == S.STATE_WORDS + S.MIN_STATE_TILES
+               and not bool(st.any()) for st in got)
+    # a buffer too small for the launch is passed over, and stays set aside
+    with pytest.raises(RuntimeError, match="reserve_graph_states"):
+        S._state(cpu, 5, 21, True)
+    small = S._state(cpu, 5, 20, True)
+    assert small.numel() == S.STATE_WORDS + 20
+    assert S._CAPTURED == got + [small] and S._SPARE[None] == []
+    assert S._state(cpu, 5, 10, False) is eager
+
+
+class _FakeCompact:
+    """Stands for the scatter library's compactions: records each launch
+    and carries it out on host memory from its arguments alone."""
+
+    def __init__(self):
+        self.launches = []
+
+    def p1_compact_blocks_per_sm(self):
+        return 8
+
+    def p1_compact(self, base, head, n, chunk, blocks, counts, out,
+                   capacity, count_out, stream):
+        self.launches.append({"route": "two_pass", "blocks": blocks,
+                              "chunk": chunk, "stream": stream})
+        return self._carry_out(base, head, n, out, capacity, count_out)
+
+    def p1_compact_one(self, base, head, n, tiles, blocks, out, capacity,
+                       count_out, state, stream):
+        self.launches.append({"route": "lookback", "tiles": tiles,
+                              "blocks": blocks, "state": state,
+                              "stream": stream})
+        return self._carry_out(base, head, n, out, capacity, count_out)
+
+    @staticmethod
+    def _carry_out(base, head, n, out, capacity, count_out):
+        assert base % 16 == 0 and 0 <= head < 16
+        mask = np.frombuffer(ctypes.string_at(base + head, n), np.uint8)
+        rows = np.nonzero(mask)[0].astype(np.int64)
+        got = np.zeros(capacity, np.int64)
+        got[:min(capacity, rows.size)] = rows[:capacity]
+        ctypes.memmove(out, got.ctypes.data, got.nbytes)
+        ctypes.memmove(count_out, np.int64(rows.size).tobytes(), 8)
+        return 0
+
+
+@pytest.mark.parametrize("route,rows", [("lookback", 70_013),
+                                        ("two_pass", 70_013),
+                                        (None, 70_013), (None, 2 ** 20 + 5)])
+@pytest.mark.parametrize("capturing", [False, True])
+def test_compact_is_one_launch_of_its_route(monkeypatch, route, rows,
+                                            capturing):
+    """On a CUDA tensor ``compact`` (``route`` None) makes ONE launch of the
+    look-back, with the state ``_state`` gives for the stream and for
+    whether it is capturing; ``_compact`` by name launches that route; the
+    result is the plain version's."""
+    lib = _FakeCompact()
+    monkeypatch.setattr(S, "_library", lambda: lib)
+    monkeypatch.setattr(S, "_OCCUPANCY", {})
+    monkeypatch.setattr(S, "_capturing", lambda: capturing)
+    monkeypatch.setattr(_build, "launch_on", lambda dev, launch: launch(77))
+    monkeypatch.setattr(_build, "sm_count", lambda dev: H100_SMS)
+    states = []
+
+    def state(dev, stream, tiles, capture):
+        states.append((stream, tiles, capture))
+        return torch.zeros(S.STATE_WORDS + tiles, dtype=torch.int64)
+
+    monkeypatch.setattr(S, "_state", state)
+    rng = np.random.RandomState(5)
+    full = rng.rand(rows + 3) < 0.3
+    for lo in (0, 3):
+        mask = _t(full).as_subclass(_OnCuda)[lo:lo + rows]
+        want_idx, want_count = S.compact_plain(_t(full)[lo:lo + rows], 9000)
+        before = S.COMPACT_LAUNCHES
+        idx, count = S.compact(mask, 9000) if route is None \
+            else S._compact(mask, 9000, route)
+        assert S.COMPACT_LAUNCHES - before == 1
+        assert torch.equal(idx.as_subclass(torch.Tensor), want_idx)
+        assert int(count.as_subclass(torch.Tensor)) == int(want_count)
+    assert [d["route"] for d in lib.launches] == [route or "lookback"] * 2
+    assert {d["stream"] for d in lib.launches} == {77}
+    one_launch = [d for d in lib.launches if d["route"] == "lookback"]
+    assert states == [(77, d["tiles"], capturing) for d in one_launch]
+
+
 @pytest.mark.parametrize("n", [0, 1, 15, 16, 17, 2 ** 23])
 @pytest.mark.parametrize("head", [0, 1, 15])
 def test_scatter_plan(n, head):
@@ -293,6 +482,8 @@ def test_scatter_geometry_matches_the_source():
     c = _source_constants("scatter")
     assert (S.THREADS, S.LANE_ROWS, S.MAX_COLUMNS) == (
         c["kThreads"], c["kLaneRows"], c["kMaxCols"])
+    assert (S.STATE_WORDS, S.SPAN_WORDS) == (c["kStateWords"],
+                                             c["kSpanWords"])
 
 
 def test_dense_plan_hist_rows_fit_32_bits():
@@ -420,6 +611,73 @@ def test_compact_matches_nonzero_on_card(card, density):
             assert int(count) == want.shape[0]
             assert torch.equal(idx[:live], want[:live])
             assert not bool(idx[live:].any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["lookback", "two_pass"])
+def test_compact_bodies_match_nonzero_on_card(card, route):
+    """Both compaction bodies against ``torch.nonzero``: views off the
+    16-byte grid, capacities below and above the count, and the outputs of
+    a replayed CUDA graph (the look-back's state is left zero)."""
+    rng = np.random.RandomState(15)
+    full = _t(rng.rand(2_000_019) < 0.036).to(card)
+    for lo in (0, 5):
+        m = full[lo:]
+        want = torch.nonzero(m)[:, 0]
+        for capacity in (0, want.shape[0] // 2, want.shape[0] + 33):
+            idx, count = S._compact(m, capacity, route)
+            live = min(capacity, want.shape[0])
+            assert int(count) == want.shape[0]
+            assert torch.equal(idx[:live], want[:live])
+            assert not bool(idx[live:].any())
+    graph, outs = torch.cuda.CUDAGraph(), []
+    S._compact(full, 99_999, route)
+    S.reserve_graph_states(card, 5)
+    with torch.cuda.graph(graph):
+        for _ in range(5):
+            outs.append(S._compact(full, 99_999, route))
+    graph.replay()
+    graph.replay()
+    torch.cuda.synchronize()
+    want_idx, want_count = S.compact_plain(full, 99_999)
+    for idx, count in outs:
+        assert torch.equal(idx, want_idx) and torch.equal(count, want_count)
+
+
+@pytest.mark.cuda
+def test_compact_graphs_captured_twice_replay_apart(card):
+    """Two graphs captured on one capture stream, the first never replayed
+    before the second is captured and replayed, then both replayed on two
+    streams at once: each answers its own mask (no state is shared), and
+    a capture with no state set aside raises before it records a launch."""
+    rng = np.random.RandomState(16)
+    masks = [_t(rng.rand(3_000_017) < d).to(card) for d in (0.036, 0.5)]
+    for m in masks:
+        S.compact(m, 7)
+    torch.cuda.synchronize()
+    S._SPARE.pop(card.index, None)
+    with pytest.raises(RuntimeError, match="reserve_graph_states"):
+        with torch.cuda.graph(torch.cuda.CUDAGraph()):
+            S.compact(masks[0], 7)
+    graphs, outs = [], []
+    for m in masks:
+        S.reserve_graph_states(card, 3)
+        graphs.append(torch.cuda.CUDAGraph())
+        with torch.cuda.graph(graphs[-1]):
+            outs.append([S.compact(m, m.shape[0]) for _ in range(3)])
+    graphs[1].replay()
+    streams = [torch.cuda.Stream() for _ in graphs]
+    torch.cuda.synchronize()
+    for _ in range(3):
+        for g, st in zip(graphs, streams):
+            with torch.cuda.stream(st):
+                g.replay()
+    torch.cuda.synchronize()
+    for m, got in zip(masks, outs):
+        want_idx, want_count = S.compact_plain(m, m.shape[0])
+        for idx, count in got:
+            assert torch.equal(idx, want_idx)
+            assert torch.equal(count, want_count)
 
 
 @pytest.mark.cuda
