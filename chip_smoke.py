@@ -31,7 +31,12 @@ logical shards of the card: ``dryrun_q1`` / ``dryrun_join`` at 2^19 rows a
 shard against numpy, the hash exchange of lineitem's l_orderkey at its quota
 and at half of it, ``Engine.sql_distributed(sql, 8)`` on Q1, Q3, a LEFT
 join, a DISTINCT, an ORDER BY ... LIMIT and a skew join at SF1 against
-``Engine.sql``, and all 22 TPC-H queries at SF 0.01.  The
+``Engine.sql``, and all 22 TPC-H queries at SF 0.01.  Then the roofline harness
+(``roofline``: its six operator rows, and ``query_bytes`` / device ms of
+the compiled Q1, Q6 and Q3) and the file catalog (``file_catalog_engine``:
+the seven lineitem columns Q1 reads at SF1 exported as CSV, read back
+through ``FileCatalog`` and queried with a Q1- and a Q6-shaped statement
+against pandas over the same file).  The
 generated TPC-H columns are kept in ``.tpch_cache`` beside this script
 (or ``P1_TPCH_CACHE``).  Every phase prints
 one JSON line; any failed phase raises, and the exit code is then non-zero.  It needs one CUDA device, the
@@ -1332,7 +1337,8 @@ def phase_q6_engine(catalog) -> dict:
     }
     say("q6_engine", **out)
     ship, disc, qty, price = (dev_cols[c].data for c in names)
-    return {"launches": launches, "cols": (ship, disc, qty, price)}
+    return {"launches": launches, "cols": (ship, disc, qty, price),
+            "cq": cq}
 
 
 class _Tap:
@@ -1639,7 +1645,7 @@ def phase_q1_engine(catalog) -> dict:
                      "1e-9 relative)", "eager == compiled"])
     word, groups, columns, slots = tap.args
     return {"launches": run["launches"], "ms_per_run": ms,
-            "profile": profile,
+            "profile": profile, "cq": run["cq"],
             "dense_args": (word, groups, list(columns), list(slots))}
 
 
@@ -1870,7 +1876,7 @@ def phase_q3_engine(catalog) -> dict:
             "profile": out["profile"], "held": out["held"],
             "ms_trials": out["ms_trials"], "compact_rows": out["compact_rows"],
             "scatter_args": out["scatter_args"],
-            "gather_args": out["gather_args"]}
+            "gather_args": out["gather_args"], "cq": run["cq"]}
 
 
 def _numpy_q27(catalog) -> tuple:
@@ -2829,6 +2835,10 @@ S4_SQL = (
     "x -> x + l_orderkey), 2)), "
     "sum(case when any_match(array[l_partkey, l_suppkey], "
     "x -> x > l_orderkey) then 1 else 0 end) from lineitem")
+# an array of two string columns with different dictionaries (ROADMAP C26)
+C26_SQL = ("select n_name, element_at(array[n_name, r_name], 2) b from "
+           "nation, region where n_regionkey = r_regionkey order by n_name "
+           "limit 3")
 COPY_COLUMNS = ("l_orderkey", "l_partkey", "l_quantity", "l_extendedprice",
                 "l_discount", "l_tax", "l_shipdate", "l_returnflag",
                 "l_linestatus")
@@ -3008,6 +3018,18 @@ def phase_statements_engine(catalog) -> dict:
              int((sk + ok_).sum()), int(((pk > ok_) | (sk > ok_)).sum()))]
     statement("S4_array_functions", S4_SQL, want,
               need=("gather", "take_along_axis"))
+    # C26: each nation's region name read from an array of both names
+    nat, _, ndicts, _ = _load_columns(catalog, "nation",
+                                      ("n_name", "n_regionkey"))
+    reg, _, rdicts, _ = _load_columns(catalog, "region",
+                                      ("r_name", "r_regionkey"))
+    region_name = dict(zip(reg["r_regionkey"].tolist(),
+                           np.asarray(rdicts["r_name"])[reg["r_name"]]))
+    want = sorted((str(a), str(region_name[int(k)])) for a, k in zip(
+        np.asarray(ndicts["n_name"])[nat["n_name"]],
+        nat["n_regionkey"]))[:3]
+    statement("S4_c26_lanes_of_two_dictionaries", C26_SQL, want,
+              need=("take_along_axis",))
 
     # S5: writes read back
     def timed(sql, **kw):
@@ -3853,6 +3875,239 @@ def _server_phase(catalog, local, refs, schema, log_dir, t_phase) -> dict:
             "server_launches": server_launches, "summary": summary}
 
 
+# the seven lineitem columns TPC-H Q1 reads, exported as one CSV file and
+# read back through the file catalog (``file_catalog_engine``)
+FILE_TABLE = "lineitem_q1"
+FILE_COLUMNS = ("l_returnflag", "l_linestatus", "l_quantity",
+                "l_extendedprice", "l_discount", "l_tax", "l_shipdate")
+# Q1 and Q6 for the types the CSV reader infers: the ship date is an ISO
+# VARCHAR (no column is parsed as a date), the decimals are DOUBLE
+FILE_Q1_SQL = f"""select l_returnflag, l_linestatus,
+    sum(l_quantity) as sum_qty, sum(l_extendedprice) as sum_base_price,
+    sum(l_extendedprice * (1 - l_discount)) as sum_disc_price,
+    sum(l_extendedprice * (1 - l_discount) * (1 + l_tax)) as sum_charge,
+    avg(l_quantity) as avg_qty, avg(l_extendedprice) as avg_price,
+    avg(l_discount) as avg_disc, count(*) as count_order
+from {FILE_TABLE} where l_shipdate <= '1998-09-02'
+group by l_returnflag, l_linestatus order by l_returnflag, l_linestatus"""
+FILE_Q6_SQL = f"""select sum(l_extendedprice * l_discount) as revenue
+from {FILE_TABLE} where l_shipdate >= '1994-01-01'
+    and l_shipdate < '1995-01-01' and l_discount between 0.05 and 0.07
+    and l_quantity < 24"""
+
+
+def _export_csv(catalog, path: str) -> int:
+    """FILE_COLUMNS of the catalog's lineitem written to ``path`` decoded,
+    as a user's export holds them: flags as letters, decimals with their
+    two places, ship dates in ISO form.  Returns the rows written."""
+    import pandas as pd
+
+    t = catalog.table("lineitem")
+    out = {}
+    for c in FILE_COLUMNS:
+        h = t.host_column(c)
+        data = np.asarray(h.data)
+        if h.dictionary is not None:
+            out[c] = np.asarray(h.dictionary, dtype=str)[data]
+        elif h.type.kind == "decimal":
+            out[c] = data / 10.0 ** h.type.scale
+        else:  # date: days since 1970-01-01
+            out[c] = (np.datetime64("1970-01-01", "D")
+                      + data.astype("timedelta64[D]")).astype(str)
+    pd.DataFrame(out).to_csv(path, index=False, float_format="%.2f")
+    return len(out[FILE_COLUMNS[0]])
+
+
+def _pandas_file_q1(df) -> list:
+    """FILE_Q1_SQL in pandas over the file's frame, in its row order."""
+    d = df[df.l_shipdate <= "1998-09-02"]
+    disc = d.l_extendedprice * (1 - d.l_discount)
+    d = d.assign(disc_price=disc, charge=disc * (1 + d.l_tax))
+    return [(f, s, g.l_quantity.sum(), g.l_extendedprice.sum(),
+             g.disc_price.sum(), g.charge.sum(), g.l_quantity.mean(),
+             g.l_extendedprice.mean(), g.l_discount.mean(), len(g))
+            for (f, s), g in d.groupby(["l_returnflag", "l_linestatus"])]
+
+
+def _pandas_file_q6(df) -> list:
+    m = ((df.l_shipdate >= "1994-01-01") & (df.l_shipdate < "1995-01-01")
+         & (df.l_discount >= 0.05) & (df.l_discount <= 0.07)
+         & (df.l_quantity < 24))
+    return [((df.l_extendedprice * df.l_discount)[m].sum(),)]
+
+
+def phase_file_catalog_engine(catalog, root: str) -> dict:
+    """The file catalog on the card: FILE_COLUMNS of the SF1 lineitem
+    (6,002,010 rows) exported as one CSV file under ``root``, read back
+    through ``FileCatalog(root, device="cuda")``, and a Q1-shaped grouped
+    aggregate and a Q6-shaped filter + sum down the main path (eager,
+    compile, ``cq()``, ``block_run``, a compiled run under the
+    synchronisation check), each held against pandas over the same file.
+    Then the same over a Parquet copy of the file where ``pyarrow``
+    imports; where it does not, a Parquet file must make the catalog raise
+    ImportError naming it."""
+    import shutil
+
+    import pandas as pd
+    from presto1_tpu_torch.exec.engine import Engine
+    from presto1_tpu_torch.exec.file_catalog import FileCatalog
+
+    want_types = {c: "varchar" if c in ("l_returnflag", "l_linestatus",
+                                        "l_shipdate") else "double"
+                  for c in FILE_COLUMNS}
+
+    def fresh(d):
+        shutil.rmtree(d, ignore_errors=True)
+        os.makedirs(d)
+        return d
+
+    def load(d, n):
+        """The catalog over ``d`` and its table's columns on the card:
+        (engine, seconds to build the table, seconds to upload)."""
+        t0 = time.time()
+        files = FileCatalog(d, device="cuda")
+        table_s = time.time() - t0
+        table = files.table(FILE_TABLE)
+        types = {c: str(t) for c, t in table.schema.items()}
+        if types != want_types or table.num_rows != n:
+            raise AssertionError(f"{d}: the table reads as {types}, "
+                                 f"{table.num_rows} rows of {n}")
+        t0 = time.time()
+        for c in FILE_COLUMNS:
+            if not table.column(c).data.is_cuda:
+                raise AssertionError(f"{c} is not on the card")
+        torch.cuda.synchronize()
+        return Engine(files, device="cuda"), table_s, time.time() - t0
+
+    def run_statements(engine, label, n):
+        results, launches, held = {}, {}, {}
+        for key, (sql, want) in wants.items():
+            def check(batch, what, want=want, key=key):
+                _match(_rows(batch), want, f"{label} {key} {what}")
+
+            out = _engine_phase(f"{label}_{key}", engine, sql, check)
+            run = out["run"]
+            for k, v in run["launches"].items():
+                launches[k] = launches.get(k, 0) + v
+            for k, h in out["held"].items():
+                cur = held.setdefault(k, {"calls_held": 0, "max_abs_err": 0.0,
+                                          "max_rel_err_of_float64_sums": 0.0})
+                cur["calls_held"] += h["calls_held"]
+                for e in ("max_abs_err", "max_rel_err_of_float64_sums"):
+                    cur[e] = max(cur[e], h[e])
+            results[key] = {
+                "ms_per_run": out["ms"], "ms_trials": out["ms_trials"],
+                "rows_per_s": n / (out["ms"] * 1e-3),
+                "device_ms_per_run": out["profile"].get("device_ms_per_run"),
+                "kernels_per_run": out["profile"].get("kernels_per_run"),
+                "profile_top": out["profile"].get("top"),
+                "launches": run["launches"],
+                "launches_per_compiled_run": {
+                    k: st["call"]
+                    for k, st in run["launches_per_step"].items()}}
+        return results, launches, held
+
+    path = os.path.join(fresh(root), f"{FILE_TABLE}.csv")
+    t0 = time.time()
+    n = _export_csv(catalog, path)
+    seconds = {"csv_write": time.time() - t0}
+    csv_bytes = os.path.getsize(path)
+    engine, seconds["csv_table"], seconds["csv_upload"] = load(root, n)
+    df = pd.read_csv(path)  # the oracle reads the file on its own
+    wants = {"q1": (FILE_Q1_SQL, _pandas_file_q1(df)),
+             "q6": (FILE_Q6_SQL, _pandas_file_q6(df))}
+    results, launches, held = run_statements(engine, "csv", n)
+    del engine
+    launched = sorted(k for k, v in launches.items() if v)
+    if not launched:
+        raise AssertionError("the CSV statements launched no hand kernel")
+    pq_root = fresh(root + "_parquet")
+    try:
+        import pyarrow
+    except ImportError:
+        pyarrow = None
+    if pyarrow is not None:
+        t0 = time.time()
+        df.to_parquet(os.path.join(pq_root, f"{FILE_TABLE}.parquet"))
+        seconds["parquet_write"] = time.time() - t0
+        engine, seconds["parquet_table"], seconds["parquet_upload"] = load(
+            pq_root, n)
+        pq_results, pq_launches, pq_held = run_statements(engine, "parquet",
+                                                          n)
+        del engine
+        parquet = {"ran": True, "pyarrow": pyarrow.__version__,
+                   "bytes": os.path.getsize(os.path.join(
+                       pq_root, f"{FILE_TABLE}.parquet")),
+                   "statements": pq_results, "launches": pq_launches}
+        for k, v in pq_launches.items():
+            launches[k] += v
+        for k, h in pq_held.items():
+            held[k]["calls_held"] += h["calls_held"]
+            for e in ("max_abs_err", "max_rel_err_of_float64_sums"):
+                held[k][e] = max(held[k][e], h[e])
+    else:
+        # nothing stands in for pyarrow: a Parquet file must refuse
+        open(os.path.join(pq_root, "t.parquet"), "wb").close()
+        try:
+            FileCatalog(pq_root, device="cuda")
+            raise AssertionError("a Parquet file read without pyarrow")
+        except ImportError as e:
+            if "pyarrow" not in str(e):
+                raise AssertionError(f"ImportError without pyarrow's name: "
+                                     f"{e}") from e
+            parquet = {"ran": False, "refused_with": str(e)}
+        print("file_catalog_engine: pyarrow is not installed here; Parquet "
+              "was not run on the card", flush=True)
+    del df
+    shutil.rmtree(pq_root, ignore_errors=True)
+    shutil.rmtree(root, ignore_errors=True)
+    say("file_catalog_engine", sf=catalog.sf, rows=n, csv_bytes=csv_bytes,
+        seconds=seconds, column_types=want_types, statements=results,
+        launches=launches, launched_families=launched, parquet=parquet,
+        held_against_plain=held,
+        agrees_with=["pandas over the same file (counts and keys exactly, "
+                     "float64 to 1e-9 relative)", "eager == compiled"])
+    return {"launches": launches, "held": held, "results": results,
+            "seconds": seconds}
+
+
+def phase_roofline(catalog, compiled: dict, profiled: dict,
+                   copy_rate: float) -> dict:
+    """``presto1_tpu_torch.testing.roofline`` on the card: its six rows at
+    2^23 rows, ``filter_sum``, ``dense_group_agg`` and ``compact`` each
+    launched inside it.  Then, for the compiled TPC-H Q1, Q6 and Q3 of the
+    earlier phases at SF1: ``query_bytes``, ``roofline.device_ms`` (the
+    union of a run's device intervals) and the share of this run's copy
+    rate those bytes are read at, beside the device ms that ``_profile``
+    gives the same compiled statement (the sum of its kernel rows)."""
+    from presto1_tpu_torch.testing import roofline
+
+    read = _counting()
+    rows = roofline.main(["--rows", str(1 << 23)])
+    launches = read()
+    missing = [k for k in ("filter_sum", "dense_group_agg", "compact")
+               if launches[k] < 1]
+    if len(rows) != 6 or missing:
+        raise AssertionError(f"the roofline made {len(rows)} rows and "
+                             f"launched no {missing}")
+    statements = {}
+    for q, cq in compiled.items():
+        nbytes = roofline.query_bytes(cq.plan, catalog)
+        dev_ms = roofline.device_ms(cq._run, reps=10)
+        prof = profiled.get(q) or _profile(cq)
+        prof_ms = prof.get("device_ms_per_run")
+        statements[q] = {
+            "query_bytes": nbytes, "device_ms": dev_ms,
+            "bytes_per_s": nbytes / (dev_ms * 1e-3),
+            "share_of_copy_rate": nbytes / (dev_ms * 1e-3) / copy_rate,
+            "profile_device_ms": prof_ms,
+            "profile_minus_union_ms": None if prof_ms is None
+            else prof_ms - dev_ms}
+    say("roofline", card=roofline.card(), rows=rows,
+        copy_rate_bytes_per_s=copy_rate, launches=launches,
+        statements=statements)
+    return {"launches": launches, "rows": rows, "statements": statements}
+
 def _strided_take_along_axis(x, idx, axis: int):
     """``take_along_axis`` as the earlier design made it, for the
     same-run comparison: one launch of the strided body (an element a
@@ -4609,6 +4864,12 @@ def main() -> int:
     q1 = phase_q1_engine(catalog)
     q15 = phase_q15view_engine(catalog)
     q3 = phase_q3_engine(catalog)
+    # the compiled Q1, Q6 and Q3 above, through the roofline harness; then
+    # let go of them
+    roof = phase_roofline(catalog, {q: p.pop("cq") for q, p in
+                                    (("q1", q1), ("q6", q6), ("q3", q3))},
+                          {"q1": q1["profile"], "q3": q3["profile"]},
+                          copy_rate)
     q7 = phase_q7_engine(catalog)
     win = phase_window_engine(catalog)
     pcie = phase_pcie_rate()
@@ -4631,18 +4892,22 @@ def main() -> int:
         catalog, refs, cache,
         log_dir=os.path.join(os.path.dirname(os.path.abspath(__file__)),
                              ".smoke_logs", "server_workers"))
+    fcat = phase_file_catalog_engine(
+        catalog, os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                              ".smoke_logs", "file_catalog"))
     ds = TpcdsCatalog(sf=1.0, device="cuda")
     q27 = phase_q27_engine(ds)
     q93 = phase_q93_engine(ds)
     q98 = phase_q98_engine(ds)
     paths = (q1, q15, q3, q27, q93, q7, q98, win, spilled, grouped, stm,
-             mesh, server)
+             mesh, server, fcat, roof)
     launches = {k: q6["launches"] * (k == "filter_sum")
                 + sum(p["launches"][k] for p in paths)
                 for k in q1["launches"]}
     held_paths = (("q15_view", q15), ("q3", q3), ("q27", q27), ("q93", q93),
                   ("q7", q7), ("q98", q98), ("window", win),
-                  ("statements", stm), ("mesh", mesh), ("server", server))
+                  ("statements", stm), ("mesh", mesh), ("server", server),
+                  ("file_catalog", fcat))
     # the main paths' own gather and scatter calls, held against the plain
     # versions in each phase, count in the kernels' measured error
     compact_err = {"max_abs_err": scatter_err["max_abs_err"],
@@ -4880,7 +5145,15 @@ def main() -> int:
             ("q93", q93), ("q7", q7), ("q98", q98), ("window", win),
             ("spill_q1_q3_q18", spilled), ("grouped", grouped),
             ("statements", stm), ("mesh", mesh),
-            ("server_in_process", server))},
+            ("server_in_process", server), ("file_catalog", fcat),
+            ("roofline", roof))},
+        file_catalog={"seconds": fcat["seconds"],
+                      "ms_per_run": {k: r["ms_per_run"]
+                                     for k, r in fcat["results"].items()},
+                      "device_ms_per_run": {
+                          k: r["device_ms_per_run"]
+                          for k, r in fcat["results"].items()}},
+        roofline={"rows": roof["rows"], "statements": roof["statements"]},
         mesh_wall_ms={k: {"sql_distributed": r["sql_distributed_wall_ms"],
                           "sql": r["sql_wall_ms"]}
                       for k, r in mesh["statements"].items()},

@@ -320,6 +320,23 @@ def encode_dictionary(values: np.ndarray):
     return dictionary, codes.astype(np.int32)
 
 
+def merge_dictionaries(dicts, device):
+    """Several string columns' dictionaries as one: (the sorted union of
+    their entries, for each column the int32 table on ``device`` that maps
+    its codes to the union's).  A column without entries (``None``, or a
+    NULL column's empty dictionary) has no table: its codes are left as
+    they are.  A Union's parts and the lanes of one array go through
+    here."""
+    dictionary = np.unique(np.concatenate(
+        [d if d is not None and len(d) else np.empty(0, "U1")
+         for d in dicts]))
+    remaps = [None if d is None or not len(d) else
+              to_device(np.searchsorted(dictionary, d).astype(np.int32),
+                        device)
+              for d in dicts]
+    return dictionary, remaps
+
+
 _PARTS = ("data", "validity", "lengths", "map_values")
 
 

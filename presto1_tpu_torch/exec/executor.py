@@ -54,8 +54,8 @@ import numpy as np
 import torch
 
 from ..batch import (
-    Column, RecordBatch, device_counts, gather_columns, round_capacity,
-    take_clamped, torch_dtype,
+    Column, RecordBatch, device_counts, gather_columns, merge_dictionaries,
+    round_capacity, take_clamped, torch_dtype,
 )
 from ..expr import ir
 from ..expr.eval import (
@@ -1153,22 +1153,10 @@ class Executor:
         device)} for the varchar outputs: computed on the host once per
         plan, as the JAX package computes them; a part without a
         dictionary (a NULL column) has no remap."""
-        out = {}
-        for sym, t, srcs in node.outputs:
-            if not t.is_string:
-                continue
-            dicts = [parts[k][srcs[k]].dictionary for k in range(len(parts))]
-            dictionary = np.unique(np.concatenate(
-                [d if d is not None and len(d) else np.empty(0, "U1")
-                 for d in dicts]))
-            remaps = []
-            for d in dicts:
-                remaps.append(None if d is None or not len(d) else
-                              torch.from_numpy(np.searchsorted(
-                                  dictionary, d).astype(np.int32)
-                              ).to(self.device))
-            out[sym] = (dictionary, remaps)
-        return out
+        return {sym: merge_dictionaries(
+                    [parts[k][srcs[k]].dictionary
+                     for k in range(len(parts))], self.device)
+                for sym, t, srcs in node.outputs if t.is_string}
 
     def _x_WindowNode(self, node: WindowNode, path: Path) -> RecordBatch:
         from ..ops.window import WindowCall, window

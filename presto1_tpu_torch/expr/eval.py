@@ -27,13 +27,17 @@ values casts both sides to one dtype explicitly first.
 from __future__ import annotations
 
 import re
+import threading
 from functools import lru_cache
 from typing import Dict
 
 import numpy as np
 import torch
 
-from ..batch import Column, RecordBatch, take_clamped, to_device, torch_dtype
+from ..batch import (
+    Column, RecordBatch, merge_dictionaries, take_clamped, to_device,
+    torch_dtype,
+)
 from ..types import DecimalType, SqlType, VARCHAR
 from .ir import Call, ColumnRef, DictLookup, Expr, Lambda, Literal, walk
 
@@ -201,7 +205,7 @@ def _eval(expr: Expr, batch: RecordBatch):
         if expr.type.is_string and isinstance(expr.value, str):
             # constant varchar: a one-entry dictionary, code 0 everywhere
             return (torch.zeros((), dtype=torch.int32, device=dev), None,
-                    np.asarray([expr.value]))
+                    _literal_dictionary(expr.value))
         return _literal_value(expr, dev), None, None
     if isinstance(expr, ColumnRef):
         c = batch[expr.name]
@@ -765,17 +769,19 @@ def _common_pair(ea: Expr, eb: Expr, batch: RecordBatch):
 def _eval_compare(expr: Call, batch: RecordBatch):
     ea, eb = expr.args[0], expr.args[1]
     if {ea.type.kind, eb.type.kind} == {"decimal", "double"}:
-        # decimal CMP double: scale the DOUBLE side up by 10^s and compare
-        # against the raw scaled int -- equivalent ordering with no f64
-        # division over the (possibly join-expanded) decimal column.
+        # decimal CMP double: the decimal as the double nearest its value
+        # (CAST(decimal AS double): the unscaled integer over 10^s, one
+        # correctly rounded division), then a double comparison.  The JAX
+        # package scales the double up by 10^s instead, which rounds:
+        # 0.07e0 * 100 is 7.000000000000001, so ``x = 0.07`` never holds
+        # for a double x (ROADMAP C27).
         a, va, _ = _eval(ea, batch)
         b, vb, _ = _eval(eb, batch)
+        a, b = a.to(torch.float64), b.to(torch.float64)
         if ea.type.kind == "decimal":
-            a = a.to(torch.float64)
-            b = b * (10.0 ** _scale_of(ea.type))
+            a = a / (10.0 ** _scale_of(ea.type))
         else:
-            a = a * (10.0 ** _scale_of(eb.type))
-            b = b.to(torch.float64)
+            b = b / (10.0 ** _scale_of(eb.type))
     else:
         a, b, va, vb, _ = _common_pair(ea, eb, batch)
     fn = expr.fn
@@ -935,6 +941,81 @@ def _recode(data, validity, d, source: SqlType, target: SqlType):
 # ------------------------------------------------------------ array/map fns
 
 
+@lru_cache(maxsize=1024)
+def _literal_dictionary(value: str) -> np.ndarray:
+    """A varchar constant's one-entry dictionary: one array a value, so that
+    the tables made for it below are found again."""
+    return np.asarray([value])
+
+
+# tables made on the host for dictionaries, by the identity of those
+# dictionaries: a compiled run evaluates with discovery's dictionaries, so
+# it finds discovery's tables and uploads nothing
+_HOST_TABLES: Dict[tuple, tuple] = {}
+_HOST_TABLES_MAX = 256
+_HOST_TABLES_LOCK = threading.Lock()  # a worker's tasks share the module
+
+
+def _host_tables(kind: str, dicts, device, make):
+    """``make()`` for these dictionaries on ``device``, made once and kept
+    (with the dictionaries, so that their ids stay theirs)."""
+    key = (kind, str(device), tuple(id(d) for d in dicts))
+    with _HOST_TABLES_LOCK:
+        hit = _HOST_TABLES.get(key)
+        if hit is not None and all(a is b for a, b in zip(hit[0], dicts)):
+            return hit[1]
+        out = make()
+        if len(_HOST_TABLES) >= _HOST_TABLES_MAX:
+            _HOST_TABLES.pop(next(iter(_HOST_TABLES)))
+        _HOST_TABLES[key] = (tuple(dicts), out)
+        return out
+
+
+def _merged(dicts, device):
+    """(one dictionary, a code remap or None for each part) for the string
+    parts of one nested value: the lanes of an array, two arrays
+    concatenated, a map's keys and values.  Parts that share a dictionary
+    (or the only part that has entries) keep their codes; else the parts'
+    dictionaries merge as a Union's parts do
+    (``batch.merge_dictionaries``).  The JAX package keeps the first
+    part's dictionary for every part (ROADMAP C26)."""
+    none = [None] * len(dicts)
+    present = [d for d in dicts if d is not None and len(d)]
+    if not present:
+        return next((d for d in dicts if d is not None), None), none
+    first = present[0]
+    if all(d is first for d in present[1:]):
+        return first, none
+
+    def make():
+        if all(np.array_equal(d, first) for d in present[1:]):
+            return first, none
+        return merge_dictionaries(dicts, device)
+
+    return _host_tables("merge", dicts, device, make)
+
+
+def _remapped(codes, remap):
+    """Dictionary codes of any shape through a part's remap (None: as
+    they are)."""
+    if remap is None:
+        return codes
+    return take_clamped(remap, codes.reshape(-1)).reshape(codes.shape)
+
+
+def _codes_in(dic, x, xdic, device):
+    """Codes ``x`` of dictionary ``xdic`` as codes of the sorted ``dic``,
+    and whether each value is in ``dic`` at all (both sides sorted)."""
+    def make():
+        at = np.searchsorted(dic, xdic).clip(0, max(len(dic) - 1, 0))
+        return (to_device(at.astype(np.int64), device),
+                to_device(np.asarray(np.asarray(dic)[at]
+                                     == np.asarray(xdic)), device))
+
+    trans, match = _host_tables("codes_in", (dic, xdic), device, make)
+    return _remapped(x, trans), _remapped(x, match)
+
+
 def _lane_mask(lengths, w: int):
     return (torch.arange(w, dtype=torch.int32, device=lengths.device)[None, :]
             < lengths[:, None])
@@ -985,13 +1066,10 @@ def _eval_array_fn(expr: Call, batch: RecordBatch):
         return d, v, dic
 
     if fn == "array_ctor":
-        vals = []
-        dic = None
-        for a in expr.args:
-            d, _, adic = _eval(a, batch)
-            if adic is not None and dic is None:
-                dic = adic
-            vals.append(_full_rows(d, n))
+        parts = [_eval(a, batch) for a in expr.args]
+        dic, remaps = _merged([p[2] for p in parts], dev)
+        vals = [_remapped(_full_rows(d, n), r)
+                for (d, _, _), r in zip(parts, remaps)]
         if vals:
             dt = vals[0].dtype
             for v in vals[1:]:
@@ -1005,8 +1083,10 @@ def _eval_array_fn(expr: Call, batch: RecordBatch):
     if fn == "map":
         kd, kv, kdic = nested(0)
         vd, vv, vdic = nested(1)
-        return (_Nested(kd.data, kd.lengths, vd.data),
-                _and_validity(kv, vv), kdic if kdic is not None else vdic)
+        dic, (rk, rv) = _merged([kdic, vdic], dev)
+        return (_Nested(_remapped(kd.data, rk), kd.lengths,
+                        _remapped(vd.data, rv)),
+                _and_validity(kv, vv), dic)
 
     if fn == "map_keys":
         d, v, dic = nested(0)
@@ -1022,7 +1102,10 @@ def _eval_array_fn(expr: Call, batch: RecordBatch):
 
     if fn == "array_concat":
         a, va, adic = nested(0)
-        b, vb, _ = nested(1)
+        b, vb, bdic = nested(1)
+        dic, (ra, rb) = _merged([adic, bdic], dev)
+        a = _Nested(_remapped(a.data, ra), a.lengths)
+        b = _Nested(_remapped(b.data, rb), b.lengths)
         rows = a.data.shape[0]
         wa, wb = a.data.shape[1], b.data.shape[1]
         w = wa + wb
@@ -1042,15 +1125,21 @@ def _eval_array_fn(expr: Call, batch: RecordBatch):
             else torch.zeros((rows, w), dtype=dt, device=dev)
         data = torch.where(j < la, da, db)
         return (_Nested(data, a.lengths + b.lengths),
-                _and_validity(va, vb), adic)
+                _and_validity(va, vb), dic)
 
     if fn == "element_at":
         d, v, dic = nested(0)
         if expr.args[0].type.kind == "map":
-            key, kv2, _ = _eval(expr.args[1], batch)
-            key, keys = _same_dtype(_full_rows(key, n), d.data)
+            key, kv2, keydic = _eval(expr.args[1], batch)
+            key = _full_rows(key, n)
+            valk = None
+            if dic is not None and keydic is not None:
+                key, valk = _codes_in(dic, key, keydic, dev)
+            key, keys = _same_dtype(key, d.data)
             hit = (keys == key[:, None]) & _lane_mask(d.lengths,
                                                      d.data.shape[1])
+            if valk is not None:
+                hit = hit & valk[:, None]
             found, lane = _first_hit(hit)
             out = _take_lane(d.map_values, lane)
             validity = _and_validity(_and_validity(v, kv2), found)
@@ -1071,12 +1160,8 @@ def _eval_array_fn(expr: Call, batch: RecordBatch):
         valx = None
         if dic is not None and xdic is not None:
             # dictionary-coded elements: compare by value through a code
-            # translation (both sides are sorted dictionaries)
-            at = np.searchsorted(dic, xdic).clip(0, max(len(dic) - 1, 0))
-            trans = to_device(at.astype(np.int64), dev)
-            match = to_device(np.asarray(np.asarray(dic)[at]
-                                         == np.asarray(xdic)), dev)
-            x, valx = take_clamped(trans, x), take_clamped(match, x)
+            # translation
+            x, valx = _codes_in(dic, x, xdic, dev)
         x, elems = _same_dtype(x, d.data)
         hit = (elems == x[:, None]) & _lane_mask(d.lengths, d.data.shape[1])
         if valx is not None:

@@ -97,11 +97,12 @@ def build_catalog(props: Dict[str, str], name: str = "catalog",
 
         return Catalog()  # writable tables arrive via CREATE TABLE
     if kind == "file":
-        # the file connector reads Parquet and CSV through pyarrow, which
-        # the port does not depend on; nothing stands in for it
-        raise ConfigError(
-            f"{name}: connector.name=file is not in the port: its Parquet "
-            f"and CSV reader is ROADMAP A10")
+        from ..exec.file_catalog import FileCatalog
+
+        root = props.get("file.root")
+        if not root:
+            raise ConfigError(f"{name}: file connector needs file.root")
+        return FileCatalog(root, device=device)
     raise ConfigError(f"{name}: unknown connector.name {kind!r}")
 
 

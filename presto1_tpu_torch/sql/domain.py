@@ -180,10 +180,30 @@ class TupleDomain:
             none=j["none"])
 
 
-def _literal_value(e: ir.Expr):
-    if isinstance(e, ir.Literal):
-        return e.value
-    return None
+_NUMERIC = ("bigint", "integer", "smallint", "tinyint", "double", "real")
+
+
+def _literal_value(e: ir.Expr, column: Optional[ir.ColumnRef] = None):
+    """A literal's value in the unit ``column`` stores, which its
+    statistics report too: a decimal column's unscaled integer at its own
+    scale, a decimal literal against any other numeric column as the number
+    it means.  The JAX package keeps the literal's own unit, so a double
+    column's ``between 0.05 and 0.07`` prunes every row group whose values
+    lie outside [5, 7] (ROADMAP C28)."""
+    if not isinstance(e, ir.Literal):
+        return None
+    v = e.value
+    if v is None or column is None:
+        return v
+    lt, ct = e.type, column.type
+    if lt.kind == "decimal" and ct.kind == "decimal":
+        shift = ct.scale - lt.scale
+        return v * 10 ** shift if shift >= 0 else v / 10 ** -shift
+    if lt.kind == "decimal" and ct.kind in _NUMERIC:
+        return v / 10 ** lt.scale
+    if ct.kind == "decimal" and lt.kind in _NUMERIC:
+        return v * 10 ** ct.scale
+    return v
 
 
 def domain_from_conjunct(c: ir.Expr) -> Optional[Tuple[str, Domain]]:
@@ -199,7 +219,7 @@ def domain_from_conjunct(c: ir.Expr) -> Optional[Tuple[str, Domain]]:
             and isinstance(args[0].args[0], ir.ColumnRef):
         return args[0].args[0].name, Domain(null_allowed=False)
     if fn == "in" and isinstance(args[0], ir.ColumnRef):
-        vals = [_literal_value(a) for a in args[1:]]
+        vals = [_literal_value(a, args[0]) for a in args[1:]]
         if any(v is None for v in vals):
             return None
         return args[0].name, Domain(values=frozenset(vals))
@@ -210,7 +230,7 @@ def domain_from_conjunct(c: ir.Expr) -> Optional[Tuple[str, Domain]]:
             fn = _CMP_FLIP[fn]
         if not (isinstance(a, ir.ColumnRef) and isinstance(b, ir.Literal)):
             return None
-        v = b.value
+        v = _literal_value(b, a)
         if v is None:
             return a.name, Domain.none()
         if fn == "=":

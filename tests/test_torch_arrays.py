@@ -387,3 +387,53 @@ def test_compiled_nested_output_keeps_its_lengths_c13(engines):
     assert got.to_pylist() == je.sql(sql).to_pylist() == [([5, 8],)]
     m = te.compile(_one("map(array[1, 2], array[10, 20])"))()
     assert m.to_pylist() == [({1: 10, 2: 20},)]
+
+
+# ---- C26: the lanes of one nested value from string columns with
+# different dictionaries
+
+_C26_FROM = ("from nation, region where n_regionkey = r_regionkey "
+             "order by n_name limit 3")
+C26_CASES = {
+    "array_ctor": (f"select n_name, element_at(array[n_name, r_name], 2) b "
+                   f"{_C26_FROM}", lambda df: df.r_name),
+    "array_concat": ("select n_name, element_at(array[n_name, n_comment] "
+                     f"|| array[r_name, r_comment], 3) b {_C26_FROM}",
+                     lambda df: df.r_name),
+    "map": ("select n_name, element_at(map(array[n_name, n_comment], "
+            f"array[r_name, r_comment]), n_name) b {_C26_FROM}",
+            lambda df: df.r_name),
+    "array_position": ("select n_name, array_position(array[n_name, "
+                       f"r_name], r_name) b {_C26_FROM}",
+                       lambda df: [2] * len(df)),
+}
+
+
+@pytest.mark.parametrize("mode", ["sql", "compiled"])
+@pytest.mark.parametrize("case", sorted(C26_CASES))
+def test_lanes_of_two_dictionaries_c26(engines, case, mode, monkeypatch):
+    """An array (or a map, or two arrays concatenated) whose string lanes
+    come from columns with different dictionaries: the JAX package reads
+    every lane through the first one's dictionary, so ``element_at(array[
+    n_name, r_name], 2)`` answers ALGERIA, ARGENTINA, ARGENTINA; the port
+    merges the dictionaries and answers each row's region name, as pandas
+    does over the same tables."""
+    _, te = engines
+    sql, want_b = C26_CASES[case]
+    n = te.catalog.table("nation").batch(
+        ["n_name", "n_regionkey"]).to_pandas()
+    r = te.catalog.table("region").batch(
+        ["r_name", "r_regionkey"]).to_pandas()
+    df = n.merge(r, left_on="n_regionkey", right_on="r_regionkey") \
+        .sort_values("n_name").head(3)
+    want = list(zip(df.n_name, want_b(df)))
+    if mode == "sql":
+        got = te.sql(sql)
+    else:
+        cq = te.compile(sql)
+        got = cq()
+        with monkeypatch.context() as m:
+            no_host_sync(m)  # the merged tables were made in discovery
+            cq._run()
+    assert [(str(a), b) for a, b in got.to_pylist()] == \
+        [(str(a), b) for a, b in want]

@@ -4,8 +4,9 @@ each parse held against the JAX package's ``server/config.py`` on the same
 files, and the servers it builds started with ``device="cpu"``.  Then the
 reference defect C23: a ``password-authenticator.properties`` makes the
 JAX package's ``build_coordinator`` raise; the port's coordinator
-authenticates against the password file.  ``connector.name=file`` raises
-and names ROADMAP A10 (no Parquet/CSV reader in the port).
+authenticates against the password file.  ``connector.name=file`` builds
+the port's ``FileCatalog`` over ``file.root`` on the given device, and
+raises ``ConfigError`` without a root, as the JAX package does.
 """
 
 import json
@@ -134,10 +135,25 @@ def test_catalog_factory_validation():
     assert "store_sales" in ds.tables
 
 
-def test_file_connector_names_a10():
-    with pytest.raises(ConfigError, match="A10"):
-        build_catalog({"connector.name": "file", "file.root": "/nowhere"},
-                      "files", device="cpu")
+def test_file_connector_names_a10(tmp_path):
+    """The file connector (ROADMAP A10, ported): a directory of one CSV file
+    answers a query on the CPU, as the JAX package's catalog over the same
+    directory does; without ``file.root`` both raise ``ConfigError``."""
+    from presto1_tpu.exec.engine import Engine as JEngine
+    from presto1_tpu_torch.exec.engine import Engine
+
+    write(str(tmp_path / "t.csv"), "k,v\n1,2.5\n2,4.0\n2,1.5\n")
+    props = {"connector.name": "file", "file.root": str(tmp_path)}
+    cat = build_catalog(props, "files", device="cpu")
+    assert str(cat.device) == "cpu" and sorted(cat.tables) == ["t"]
+    sql = "select k, sum(v) s, count(*) c from t group by k order by k"
+    got = Engine(cat, device="cpu").sql(sql).to_pylist()
+    assert got == JEngine(j_config.build_catalog(props, "files")).sql(
+        sql).to_pylist() == [(1, 2.5, 1), (2, 5.5, 2)]
+    with pytest.raises(ConfigError, match="file.root"):
+        build_catalog({"connector.name": "file"}, "files", device="cpu")
+    with pytest.raises(j_config.ConfigError, match="file.root"):
+        j_config.build_catalog({"connector.name": "file"}, "files")
 
 
 def test_coordinator_end_to_end_from_etc(tmp_path):

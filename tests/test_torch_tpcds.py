@@ -187,9 +187,10 @@ def test_compiled_run_never_waits_for_the_host(engines, monkeypatch, q):
 
 def test_import_with_jax_blocked():
     """The port, its TPC-DS connector, joins, Union, windows, the
-    dynamic-copy kernel, and memory accounting, spilling, grouped execution
-    and sampled discovery import and run with jax and the reference package
-    unimportable."""
+    dynamic-copy kernel, memory accounting, spilling, grouped execution,
+    sampled discovery, the file catalog and the roofline harness import and
+    run with jax and the reference package unimportable; the file catalog
+    and the roofline import no pyarrow."""
     code = (
         "import sys, importlib.abc\n"
         "class Block(importlib.abc.MetaPathFinder):\n"
@@ -225,6 +226,15 @@ def test_import_with_jax_blocked():
         "assert h.sql(H[3]).num_rows == 10\n"
         "assert h.compile_grouped(H[1], n_groups=2)().num_rows == 4\n"
         "assert h.compile(H[3], sample={'lineitem': 4})().num_rows == 10\n"
+        "import presto1_tpu_torch.exec.file_catalog as fc\n"
+        "import presto1_tpu_torch.testing.roofline as rl\n"
+        "assert not any(m.split('.')[0] == 'pyarrow' for m in sys.modules)\n"
+        "assert rl.busy_time([(0, 2), (1, 3)]) == 3\n"
+        "import tempfile\n"
+        "d = tempfile.mkdtemp()\n"
+        "open(d + '/t.csv', 'w').write('k,v\\n1,2.5\\n1,0.5\\n')\n"
+        "f = Engine(fc.FileCatalog(d, device='cpu'), device='cpu')\n"
+        "assert f.sql('select sum(v) s from t').to_pylist() == [(3.0,)]\n"
         "print('clean')\n")
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     out = subprocess.run([sys.executable, "-c", code], cwd=root,

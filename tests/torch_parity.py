@@ -98,7 +98,8 @@ def assert_batches_equal(jb, tb, what=""):
 
 
 __all__ = ["J", "T", "both_batches", "jax_parts", "assert_columns_equal",
-           "assert_batches_equal", "no_host_sync"]
+           "assert_batches_equal", "no_host_sync", "assert_frames_equal",
+           "same_answer"]
 
 
 def no_host_sync(monkeypatch):
@@ -120,3 +121,40 @@ def no_host_sync(monkeypatch):
     for name in ("tensor", "from_numpy", "nonzero", "unique", "bincount",
                  "masked_select"):
         monkeypatch.setattr(torch, name, refuse(name))
+
+
+def assert_frames_equal(got, want, ordered: bool = True, what=""):
+    """Two ``to_pandas()`` results: the same column names, rows and NULLs;
+    doubles to 1e-6 relative, everything else exact.  ``ordered=False``
+    compares the rows as multisets (a statement without ORDER BY)."""
+    import numpy as np
+
+    assert list(got.columns) == list(want.columns), what
+    assert len(got) == len(want), (what, len(got), len(want))
+    if not ordered:
+        def canon(df):
+            key = [tuple((v is None or v != v, "" if v is None or v != v
+                          else str(v)) for v in row)
+                   for row in df.itertuples(index=False)]
+            return df.iloc[sorted(range(len(df)), key=key.__getitem__)
+                           ].reset_index(drop=True)
+        got, want = canon(got), canon(want)
+    for c in got.columns:
+        g, w = got[c], want[c]
+        assert list(g.isna()) == list(w.isna()), (what, c)
+        g, w = g[~g.isna()], w[~w.isna()]
+        if w.dtype.kind == "f" or g.dtype.kind == "f" or any(
+                isinstance(v, (float, np.floating)) for v in w):
+            np.testing.assert_allclose(g.to_numpy(float), w.to_numpy(float),
+                                       rtol=1e-6, atol=0,
+                                       err_msg=f"{what}: {c}")
+        else:
+            assert list(g) == list(w), (what, c)
+
+
+def same_answer(engine, reference, sql, ordered: bool = True):
+    """The port's ``engine.sql(sql).to_pandas()``, held equal to the JAX
+    package's answer to the same statement."""
+    got = engine.sql(sql).to_pandas()
+    assert_frames_equal(got, reference.sql(sql).to_pandas(), ordered, sql)
+    return got
