@@ -33,12 +33,17 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from .trace import enter, host_read
 from .types import SqlType
+
+
+def _numpy(t) -> np.ndarray:
+    return t.detach().cpu().numpy()
 
 
 def _host(t) -> np.ndarray:
     """Device tensor -> host numpy (the only readback in this module)."""
-    return t.detach().cpu().numpy()
+    return host_read(t, _numpy)
 
 
 def to_device(arr: np.ndarray, device) -> torch.Tensor:
@@ -136,79 +141,80 @@ class Column:
         data = _host(self.data[:n])
         if self.lengths is not None:
             lens = _host(self.lengths[:n])
-
-            def dec(vals, t):
-                e = Column(torch.from_numpy(np.ascontiguousarray(vals)), t,
-                           dictionary=self.dictionary)
-                return e.decode(len(vals))
-
+            dic = self.dictionary
             out = np.empty(n, dtype=object)
             if self.type.kind == "map":
                 vdata = _host(self.map_values[:n])
                 for i in range(n):
-                    k = dec(data[i, :lens[i]], self.type.key)
-                    v = dec(vdata[i, :lens[i]], self.type.value)
+                    k = _flat_values(data[i, :lens[i]], self.type.key, dic)
+                    v = _flat_values(vdata[i, :lens[i]], self.type.value, dic)
                     out[i] = dict(zip(k.tolist(), v.tolist()))
             else:
                 for i in range(n):
-                    out[i] = dec(data[i, :lens[i]],
-                                 self.type.element).tolist()
-            if self.validity is not None:
-                mask = _host(self.validity[:n])
-                out[~mask] = None
-            return out
-        if self.type.is_string:
-            assert self.dictionary is not None
-            codes = np.clip(data, 0, len(self.dictionary) - 1) if len(self.dictionary) else data
-            out = self.dictionary[codes] if len(self.dictionary) else np.array([""] * n, dtype=object)
-            if self.type.kind == "varbinary":
-                # physical latin-1 image -> real bytes at the boundary
-                out = np.array([s.encode("latin-1") for s in out],
-                               dtype=object)
-        elif self.type.kind == "decimal":
-            out = data / (10 ** self.type.scale)  # type: ignore[attr-defined]
-        elif self.type.kind == "date":
-            out = np.array(["1970-01-01"], dtype="datetime64[D]")[0] + data
-        elif self.type.kind == "timestamp":
-            out = (np.array(["1970-01-01"], dtype="datetime64[us]")[0]
-                   + data.astype("timedelta64[us]"))
-        elif self.type.kind == "timestamptz":
-            # render the civil time in the column's zone + offset suffix
-            off_min = self.type.offset_minutes
-            local = (np.array(["1970-01-01"], dtype="datetime64[us]")[0]
-                     + (data + self.type.offset_micros)
-                     .astype("timedelta64[us]"))
-            sign = "+" if off_min >= 0 else "-"
-            suffix = f" {sign}{abs(off_min) // 60:02d}:{abs(off_min) % 60:02d}"
-            out = np.array(
-                [str(v).replace("T", " ") + suffix for v in local],
-                dtype=object)
-        elif self.type.kind == "interval_ds":
-            # render like the reference's SqlIntervalDayTime: 'D HH:MM:SS.mmm'
-            def _ds(us):
-                sign = "-" if us < 0 else ""
-                us = abs(int(us))
-                d, rem = divmod(us, 86_400_000_000)
-                h, rem = divmod(rem, 3_600_000_000)
-                m, rem = divmod(rem, 60_000_000)
-                s, rem = divmod(rem, 1_000_000)
-                return f"{sign}{d} {h:02d}:{m:02d}:{s:02d}.{rem // 1000:03d}"
-
-            out = np.array([_ds(v) for v in data], dtype=object)
-        elif self.type.kind == "interval_ym":
-            def _ym(months):
-                sign = "-" if months < 0 else ""
-                y, m = divmod(abs(int(months)), 12)
-                return f"{sign}{y}-{m}"
-
-            out = np.array([_ym(v) for v in data], dtype=object)
+                    out[i] = _flat_values(data[i, :lens[i]],
+                                          self.type.element, dic).tolist()
         else:
-            out = data
+            out = _flat_values(data, self.type, self.dictionary)
         if self.validity is not None:
             mask = _host(self.validity[:n])
             out = np.asarray(out, dtype=object)
             out[~mask] = None
         return out
+
+
+def _flat_values(data: np.ndarray, t: SqlType, dictionary) -> np.ndarray:
+    """Host values of a column of type ``t`` (no lengths) from its data on
+    the host, nulls not applied."""
+    n = len(data)
+    if t.is_string:
+        assert dictionary is not None
+        codes = np.clip(data, 0, len(dictionary) - 1) \
+            if len(dictionary) else data
+        out = dictionary[codes] if len(dictionary) \
+            else np.array([""] * n, dtype=object)
+        if t.kind == "varbinary":
+            # physical latin-1 image -> real bytes at the boundary
+            out = np.array([s.encode("latin-1") for s in out],
+                           dtype=object)
+    elif t.kind == "decimal":
+        out = data / (10 ** t.scale)  # type: ignore[attr-defined]
+    elif t.kind == "date":
+        out = np.array(["1970-01-01"], dtype="datetime64[D]")[0] + data
+    elif t.kind == "timestamp":
+        out = (np.array(["1970-01-01"], dtype="datetime64[us]")[0]
+               + data.astype("timedelta64[us]"))
+    elif t.kind == "timestamptz":
+        # render the civil time in the column's zone + offset suffix
+        off_min = t.offset_minutes
+        local = (np.array(["1970-01-01"], dtype="datetime64[us]")[0]
+                 + (data + t.offset_micros).astype("timedelta64[us]"))
+        sign = "+" if off_min >= 0 else "-"
+        suffix = f" {sign}{abs(off_min) // 60:02d}:{abs(off_min) % 60:02d}"
+        out = np.array(
+            [str(v).replace("T", " ") + suffix for v in local],
+            dtype=object)
+    elif t.kind == "interval_ds":
+        # render like the reference's SqlIntervalDayTime: 'D HH:MM:SS.mmm'
+        def _ds(us):
+            sign = "-" if us < 0 else ""
+            us = abs(int(us))
+            d, rem = divmod(us, 86_400_000_000)
+            h, rem = divmod(rem, 3_600_000_000)
+            m, rem = divmod(rem, 60_000_000)
+            s, rem = divmod(rem, 1_000_000)
+            return f"{sign}{d} {h:02d}:{m:02d}:{s:02d}.{rem // 1000:03d}"
+
+        out = np.array([_ds(v) for v in data], dtype=object)
+    elif t.kind == "interval_ym":
+        def _ym(months):
+            sign = "-" if months < 0 else ""
+            y, m = divmod(abs(int(months)), 12)
+            return f"{sign}{y}-{m}"
+
+        out = np.array([_ym(v) for v in data], dtype=object)
+    else:
+        out = data
+    return out
 
 
 @dataclass
@@ -217,6 +223,9 @@ class RecordBatch:
 
     columns: Dict[str, Column]
     num_rows: int
+    # the QueryTrace of the traced statement that returned this batch (an
+    # instance attribute set by ``Engine.sql``; not a field)
+    trace = None
 
     @property
     def names(self):
@@ -239,13 +248,18 @@ class RecordBatch:
                            num_rows)
 
     def to_pylist(self):
-        cols = {n: c.decode(self.num_rows) for n, c in self.columns.items()}
-        return [tuple(cols[n][i] for n in self.names) for i in range(self.num_rows)]
+        with enter(self.trace, "to_host"):
+            cols = {n: c.decode(self.num_rows)
+                    for n, c in self.columns.items()}
+            return [tuple(cols[n][i] for n in self.names)
+                    for i in range(self.num_rows)]
 
     def to_pandas(self):
         import pandas as pd
 
-        return pd.DataFrame({n: c.decode(self.num_rows) for n, c in self.columns.items()})
+        with enter(self.trace, "to_host"):
+            return pd.DataFrame({n: c.decode(self.num_rows)
+                                 for n, c in self.columns.items()})
 
 
 def from_numpy(arrays: Dict[str, np.ndarray], types: Dict[str, SqlType],

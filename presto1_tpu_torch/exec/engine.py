@@ -21,6 +21,7 @@ shards (``parallel/``), by default all on the engine's device.
 
 from __future__ import annotations
 
+import itertools
 import time
 from typing import Optional
 
@@ -30,9 +31,11 @@ from ..sql import parser as sql_parser
 from ..sql.logical import LogicalNode, plan_tree
 from ..sql.optimizer import optimize
 from ..sql.planner import Planner
+from ..trace import TRACE, QueryTrace, host_read, span
 from .catalog import Catalog
 from .events import EventBus, QueryEvent
 from .executor import Executor
+from .metrics import REGISTRY
 from .session import Session
 from .stats import QueryStats
 
@@ -40,7 +43,7 @@ from .stats import QueryStats
 class Engine:
     def __init__(self, catalog: Catalog, session: Optional[Session] = None,
                  events: Optional[EventBus] = None, memory_pool=None,
-                 access_control=None, device="cuda"):
+                 access_control=None, device="cuda", trace: bool = False):
         self.catalog = catalog
         self.session = session or Session()
         self.events = events or EventBus()
@@ -50,19 +53,27 @@ class Engine:
         # creates live; nothing looks for another device when this one is
         # missing
         self.device = torch.device(device)
+        # with tracing on, each statement of ``sql`` keeps a QueryTrace
+        # (``trace.py``), carried by its last event and its batch
+        self.trace = trace
+        self._statements = itertools.count(1)
         self._compiled_cache: dict = {}
         from .system_catalog import attach_system_tables
 
         attach_system_tables(self.catalog, self)
 
-    def _memory_context(self):
+    def _statement_id(self) -> str:
+        """A statement's own id: the session's and a sequence number."""
+        return f"{self.session.query_id}.{next(self._statements)}"
+
+    def _memory_context(self, query_id: str):
         """Per-query accounting when a limit or shared pool is configured."""
         limit = self.session.get("query_max_memory")
         if not limit and self.memory_pool is None:
             return None
         from .memory import QueryMemoryContext
 
-        ctx = QueryMemoryContext(self.session.query_id,
+        ctx = QueryMemoryContext(query_id,
                                  max_bytes=limit or None,
                                  pool=self.memory_pool)
         if self.memory_pool is not None:
@@ -96,12 +107,17 @@ class Engine:
         return out
 
     def _plan_ast(self, q, user: Optional[str] = None) -> LogicalNode:
-        plan = optimize(Planner(self.catalog).plan(q), self.catalog)
+        with span("plan"):
+            plan = Planner(self.catalog).plan(q)
+        with span("optimize"):
+            plan = optimize(plan, self.catalog)
         self._enforce_access(plan, user)
         return plan
 
     def plan(self, sql: str, user: Optional[str] = None) -> LogicalNode:
-        return self._plan_ast(sql_parser.parse(sql), user)
+        with span("parse"):
+            q = sql_parser.parse(sql)
+        return self._plan_ast(q, user)
 
     def explain(self, sql: str) -> str:
         return plan_tree(self.plan(sql))
@@ -112,17 +128,35 @@ class Engine:
 
         A fresh Executor per statement: capacity/range records are
         plan-specific (sharing them across different plans would corrupt
-        shapes)."""
-        self.events.emit(QueryEvent("created", self.session.query_id, sql,
+        shapes).  With ``trace`` on, the statement's QueryTrace rides on its
+        completed (or failed) event and on the batch, whose ``to_pylist`` /
+        ``to_pandas`` add their ``to_host`` span to it."""
+        query_id = self._statement_id()
+        if not self.trace:
+            return self._sql(sql, stats, user, query_id, None)
+        trace = QueryTrace(query_id)
+        token = TRACE.set(trace)
+        try:
+            return self._sql(sql, stats, user, query_id, trace)
+        finally:
+            TRACE.reset(token)
+
+    def _sql(self, sql: str, stats: Optional[QueryStats],
+             user: Optional[str], query_id: str,
+             trace: Optional[QueryTrace]):
+        if trace is not None:
+            root = trace.begin("statement")
+        self.events.emit(QueryEvent("created", query_id, sql,
                                     self.session.user))
-        t0 = time.time()
+        t0 = time.perf_counter()
         try:
             if self.session.get("compile_queries") and stats is None:
                 # plan-cache path (the reference caches plans per query
                 # shape; here the cached artifact is the compiled fragments)
                 cq = self._compiled_cache.get(sql)
                 if cq is None:
-                    cq = self.compile(sql, user=user)
+                    with span("compile"):
+                        cq = self.compile(sql, user=user)
                     self._compiled_cache[sql] = cq
                 if self.access_control is not None:
                     # re-check per call: the cache is shared across users
@@ -132,34 +166,39 @@ class Engine:
                             self.session.catalog, t)
                 out = cq()
             else:
-                out = self._execute(self.plan(sql, user=user), stats)
-            rows = out.num_rows if isinstance(out.num_rows, int) \
-                else int(out.num_rows)
+                plan = self.plan(sql, user=user)
+                with span("execute"):
+                    out = self._execute(plan, stats, query_id)
+            rows = host_read(out.num_rows)
         except Exception as e:
-            from .metrics import REGISTRY
-
+            wall = time.perf_counter() - t0
             REGISTRY.counter("engine.queries_failed").update()
+            if trace is not None:
+                trace.end(root)
             self.events.emit(QueryEvent(
-                "failed", self.session.query_id, sql, self.session.user,
-                wall_s=time.time() - t0, error=str(e)))
+                "failed", query_id, sql, self.session.user, wall_s=wall,
+                error=str(e), trace=trace))
             raise
-        from .metrics import REGISTRY
-
+        wall = time.perf_counter() - t0
         REGISTRY.counter("engine.queries_completed").update()
         REGISTRY.counter("engine.output_rows").update(rows)
-        REGISTRY.distribution("engine.query_wall_s").add(time.time() - t0)
+        REGISTRY.distribution("engine.query_wall_s").add(wall)
+        if trace is not None:
+            trace.end(root)
+            out.trace = trace
         self.events.emit(QueryEvent(
-            "completed", self.session.query_id, sql, self.session.user,
-            wall_s=time.time() - t0, rows=rows))
+            "completed", query_id, sql, self.session.user, wall_s=wall,
+            rows=rows, trace=trace))
         if stats is not None:
-            stats.wall_s = time.time() - t0
+            stats.wall_s = wall
         return out
 
     def _execute(self, plan: LogicalNode,
-                 stats: Optional[QueryStats] = None):
+                 stats: Optional[QueryStats] = None,
+                 query_id: Optional[str] = None):
         """Run a plan eagerly under the session's memory limit and spill
         threshold (``query_max_memory``, ``spill_threshold``)."""
-        mem = self._memory_context()
+        mem = self._memory_context(query_id or self._statement_id())
         try:
             ex = Executor(
                 self.catalog, stats=stats, device=self.device, memory=mem,
@@ -172,7 +211,7 @@ class Engine:
             # eager-mode guards (wide-decimal sum overflow): the compiled
             # path ANDs these into its one readback
             for chk in ex.overflow_checks:
-                if not bool(chk):
+                if not host_read(chk, bool):
                     raise ArithmeticError(
                         "aggregate overflow: a decimal sum exceeded the "
                         "18-digit device decimal (reference raises on "

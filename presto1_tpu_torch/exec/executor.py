@@ -76,6 +76,7 @@ from ..sql.logical import (
     Aggregate, Filter, Join, Limit, LogicalNode, MarkDistinct, Output,
     Project, Scan, SingleRow, Sort, Union, Unnest, WindowNode,
 )
+from ..trace import TRACE, host_read, span
 
 Path = Tuple[int, ...]
 
@@ -160,7 +161,7 @@ class Executor:
         """Sync the row count to host and re-bucket capacity (eager only)."""
         if self.compiled:
             return batch
-        n = int(batch.num_rows) if not isinstance(batch.num_rows, int) else batch.num_rows
+        n = host_read(batch.num_rows)
         cap = round_capacity(n)
         if cap < batch.capacity():
             cols = {
@@ -206,6 +207,13 @@ class Executor:
     def execute(self, node: LogicalNode, path: Path = ()) -> RecordBatch:
         if path in self.stubs:  # fragment input boundary
             return self.stubs[path]
+        trace = TRACE.get()
+        if trace is None:
+            return self._operator(node, path)
+        with trace.span("op:" + type(node).__name__):
+            return self._operator(node, path)
+
+    def _operator(self, node: LogicalNode, path: Path) -> RecordBatch:
         kind = type(node).__name__
         m = getattr(self, f"_x_{kind}", None)
         if m is None:
@@ -217,7 +225,7 @@ class Executor:
 
             t0 = _time.time()
             out = m(node, path)
-            rows = out.num_rows if isinstance(out.num_rows, int) else int(out.num_rows)
+            rows = host_read(out.num_rows)
             # cumulative wall time (includes children) -- rendered as such
             self.stats.record(path, kind, "",
                               _time.time() - t0, rows, out.capacity(),
@@ -425,7 +433,7 @@ class Executor:
         # eager: the reference's compact-then-shrink capacity, sized from
         # the live lane count (one sync) without moving n * W rows
         cap = rec["capacity"] if self.compiled \
-            else min(n * w, round_capacity(int(torch.sum(mask))))
+            else min(n * w, round_capacity(host_read(torch.sum(mask))))
         idx, count = compact_indices(mask, cap)
         t = node.array.type
         cols = gather_columns(child.columns,
@@ -572,7 +580,7 @@ class Executor:
             # keys; guard against growth
             self._check_capacity(out.num_rows, max_groups)
         else:
-            rec["max_groups"] = max(round_capacity(int(out.num_rows)),
+            rec["max_groups"] = max(round_capacity(host_read(out.num_rows)),
                                     rec.get("max_groups", 0))
         return self._shrink(out)
 
@@ -753,7 +761,7 @@ class Executor:
 
         if node.kind == "cross":
             if not self.compiled:
-                rec["scalar_build"] = int(right.num_rows) == 1
+                rec["scalar_build"] = host_read(right.num_rows) == 1
             if rec.get("scalar_build"):
                 rn = right.num_rows
                 if self.compiled and self.guard_ranges \
@@ -769,7 +777,8 @@ class Executor:
                 cap = rec["capacity"]
             else:
                 cap = round_capacity(
-                    max(int(left.num_rows) * int(right.num_rows), 1))
+                    max(host_read(left.num_rows)
+                        * host_read(right.num_rows), 1))
                 rec["capacity"] = max(cap, rec.get("capacity", 0))
             out = cross_join(left, right, cap)
             self._check_capacity(out.num_rows, cap)
@@ -832,8 +841,8 @@ class Executor:
                 node.build_unique if node.kind == "inner" else False)
             # eager capacity guesses start from the FUSED-mask row count:
             # the probe batch itself is unfiltered when a Filter fused in
-            rec["probe_rows"] = int(torch.sum(probe_mask)) \
-                if probe_mask is not None else int(lb.num_rows)
+            rec["probe_rows"] = host_read(torch.sum(probe_mask)) \
+                if probe_mask is not None else host_read(lb.num_rows)
         probe_rows = rec.get("probe_rows", 0)
 
         if node.kind in ("semi", "anti"):
@@ -854,7 +863,7 @@ class Executor:
                                         stats=stats,
                                         build_sorted=build_sorted,
                                         probe_mask=probe_mask)
-                        pairs_total = int(stats["pairs_total"])
+                        pairs_total = host_read(stats["pairs_total"])
                         if pairs_total <= cap_pairs:
                             break
                         cap_pairs = round_capacity(pairs_total)
@@ -868,7 +877,7 @@ class Executor:
                 # the merge path's payload moves by GATHER at [capacity]:
                 # record the TIGHT discovered output count, not the
                 # probe-sized upper bound; growth trips the device guard
-                tight = round_capacity(max(int(out.num_rows), 1)) \
+                tight = round_capacity(max(host_read(out.num_rows), 1)) \
                     if rec.get("merge_join") else cap
                 rec["capacity"] = max(tight, rec.get("capacity", 0))
             self._check_capacity(out.num_rows, cap)
@@ -905,16 +914,16 @@ class Executor:
                                 build_unique=node.build_unique,
                                 build_sorted=build_sorted,
                                 probe_mask=probe_mask)
-                total = int(out.num_rows)
+                total = host_read(out.num_rows)
                 if "pairs_total" in stats:
-                    total = max(total, int(stats["pairs_total"]))
+                    total = max(total, host_read(stats["pairs_total"]))
                 if total <= cap:
                     break
                 cap = round_capacity(total)
             # merge-path inner joins gather payload at [capacity]: record
             # the tight output count; the classic paths keep the
             # pair-buffer-sized capacity
-            tight = round_capacity(max(int(out.num_rows), 1)) \
+            tight = round_capacity(max(host_read(out.num_rows), 1)) \
                 if rec.get("merge_join") else cap
             rec["capacity"] = max(tight, rec.get("capacity", 0))
         out = self._drop_temp(out)
@@ -987,8 +996,8 @@ class Executor:
             cap_a = rec["anti_capacity"]
             cap_f = rec["full_capacity"]
         else:
-            cap_l = round_capacity(max(int(lb.num_rows) * 2, 128))
-            cap_a = round_capacity(max(int(rb.num_rows), 1))
+            cap_l = round_capacity(max(host_read(lb.num_rows) * 2, 128))
+            cap_a = round_capacity(max(host_read(rb.num_rows), 1))
         while True:
             stats: Dict[str, object] = {}
             pairs = hash_join(lb, rb, lkeys, rkeys, "left", ranges, cap_l,
@@ -996,7 +1005,8 @@ class Executor:
             if self.compiled:
                 self._check_capacity(stats["pairs_total"], cap_l)
                 break
-            total = max(int(pairs.num_rows), int(stats["pairs_total"]))
+            total = max(host_read(pairs.num_rows),
+                        host_read(stats["pairs_total"]))
             if total <= cap_l:
                 break
             cap_l = round_capacity(total)
@@ -1014,15 +1024,15 @@ class Executor:
                                  stats=astats)
                 self._check_capacity(astats["pairs_total"], cap_ap)
             else:
-                cap_ap = round_capacity(max(int(rb.num_rows) * 2, 128))
+                cap_ap = round_capacity(max(host_read(rb.num_rows) * 2, 128))
                 while True:
                     astats = {}
                     anti = hash_join(rb, lb, rkeys, lkeys, "anti", ranges,
                                      cap_ap, residual=cross_residual,
                                      stats=astats)
-                    if int(astats["pairs_total"]) <= cap_ap:
+                    if host_read(astats["pairs_total"]) <= cap_ap:
                         break
-                    cap_ap = round_capacity(int(astats["pairs_total"]))
+                    cap_ap = round_capacity(host_read(astats["pairs_total"]))
                 rec["anti_pairs_capacity"] = max(
                     cap_ap, rec.get("anti_pairs_capacity", 0))
         # null-extend the left-side columns on the anti part
@@ -1040,7 +1050,7 @@ class Executor:
                                 anti.num_rows)
         if not self.compiled:
             cap_f = round_capacity(
-                max(int(pairs.num_rows) + int(anti.num_rows), 1))
+                max(host_read(pairs.num_rows) + host_read(anti.num_rows), 1))
             rec["capacity"] = max(cap_l, rec.get("capacity", 0))
             rec["anti_capacity"] = max(cap_a, rec.get("anti_capacity", 0))
             rec["full_capacity"] = max(cap_f, rec.get("full_capacity", 0))
@@ -1074,8 +1084,8 @@ class Executor:
             # spill mode: apply the domain as a compaction (memory is the
             # constraint here, and compaction shrinks the partitions)
             m = self._dynamic_filter(lb, rb, lkeys, rkeys, None)
-            if m is not None and int(torch.sum(m)) < 0.75 * max(
-                    int(lb.num_rows), 1):
+            if m is not None and host_read(torch.sum(m)) < 0.75 * max(
+                    host_read(lb.num_rows), 1):
                 lb = self._shrink(compact(lb, m))
         lr = key_ranges([lb[k] for k in lkeys], lb.num_rows)
         rr = key_ranges([rb[k] for k in rkeys], rb.num_rows)
@@ -1108,24 +1118,26 @@ class Executor:
                 out = self._full_join(node, ld, rd, lkeys, rkeys, ranges,
                                       residual, {})
             elif node.kind in ("semi", "anti"):
-                cap = round_capacity(max(int(ld.num_rows), 1))
+                cap = round_capacity(max(host_read(ld.num_rows), 1))
                 if residual is not None:
-                    cap_pairs = round_capacity(max(int(ld.num_rows) * 4, 128))
+                    cap_pairs = round_capacity(
+                        max(host_read(ld.num_rows) * 4, 128))
                     while True:
                         st: Dict[str, object] = {}
                         out = hash_join(ld, rd, lkeys, rkeys, node.kind,
                                         ranges, cap_pairs, residual=residual,
                                         stats=st)
-                        if int(st["pairs_total"]) <= cap_pairs:
+                        if host_read(st["pairs_total"]) <= cap_pairs:
                             break
-                        cap_pairs = round_capacity(int(st["pairs_total"]))
+                        cap_pairs = round_capacity(
+                            host_read(st["pairs_total"]))
                 else:
                     out = hash_join(ld, rd, lkeys, rkeys, node.kind, ranges,
                                     cap)
                 out = self._drop_temp(out)
             else:  # inner / left
                 factor = 1 if node.build_unique else 2
-                cap = round_capacity(max(int(ld.num_rows) * factor, 128))
+                cap = round_capacity(max(host_read(ld.num_rows) * factor, 128))
                 while True:
                     st = {}
                     out = hash_join(ld, rd, lkeys, rkeys, node.kind, ranges,
@@ -1133,8 +1145,8 @@ class Executor:
                                     build_unique=node.build_unique)
                     # as in _x_Join: a residual join compacts after its
                     # expansion, so the pair buffer must have held every pair
-                    need = max(int(out.num_rows),
-                               int(st.get("pairs_total", 0)))
+                    need = max(host_read(out.num_rows),
+                               host_read(st.get("pairs_total", 0)))
                     if need <= cap:
                         break
                     cap = round_capacity(need)
@@ -1189,7 +1201,7 @@ class Executor:
         if self.compiled:
             cap = rec["capacity"]
         else:
-            cap = round_capacity(max(sum(int(c) for c in counts), 1))
+            cap = round_capacity(max(sum(host_read(c) for c in counts), 1))
             rec["capacity"] = max(cap, rec.get("capacity", 0))
         total = counts[0]
         for c in counts[1:]:
@@ -1462,6 +1474,11 @@ def _node_at(plan: LogicalNode, path: Path) -> LogicalNode:
     return node
 
 
+def _synchronize(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.current_stream(device).synchronize()
+
+
 def _k(path: Path, name: str, kind: str) -> str:
     return f"{'/'.join(map(str, path))}|{name}|{kind}"
 
@@ -1725,9 +1742,14 @@ class CompiledQuery:
         results: Dict[Path, tuple] = self._external_results(stubs) \
             if self.external else {}
         oks = []
+        trace = TRACE.get()
         for root, child_roots, fn in self._stages:
             frag_inputs = self._wire(results, child_roots, consume=True)
-            out = fn(self.inputs, frag_inputs)
+            if trace is None:
+                out = fn(self.inputs, frag_inputs)
+            else:
+                with trace.span("fragment", "/".join(map(str, root))):
+                    out = fn(self.inputs, frag_inputs)
             del frag_inputs
             results[root] = out
             if out[3] is not None:
@@ -1739,16 +1761,21 @@ class CompiledQuery:
         """The run's single device->host transfer: the row count and the
         AND of every overflow flag, in one tensor."""
         if isinstance(num_rows, int) and not oks:
-            if self.device.type == "cuda":
-                torch.cuda.current_stream(self.device).synchronize()
+            # the run's one wait for the device, traced on any device (a
+            # trace records waits by site)
+            trace = TRACE.get()
+            if trace is None:
+                _synchronize(self.device)
+            else:
+                trace.wait(_synchronize, self.device, 0)
             return num_rows
         ok = torch.ones((), dtype=torch.bool, device=self.device)
         for o in oks:
             ok = ok & o
         n = num_rows if not isinstance(num_rows, int) else torch.full(
             (), num_rows, dtype=torch.int64, device=self.device)
-        n_host, ok_host = torch.stack(
-            [n.to(torch.int64), ok.to(torch.int64)]).tolist()
+        n_host, ok_host = host_read(torch.stack(
+            [n.to(torch.int64), ok.to(torch.int64)]), torch.Tensor.tolist)
         if not ok_host:
             raise ExecError(
                 "compiled-plan buffer overflow: data outgrew the "
@@ -1757,8 +1784,9 @@ class CompiledQuery:
 
     def __call__(self, stubs: Optional[Dict[Path, RecordBatch]] = None
                  ) -> RecordBatch:
-        data, validity, num_rows, oks = self._run(stubs)
-        n = self._readback(num_rows, oks)
+        with span("run"):
+            data, validity, num_rows, oks = self._run(stubs)
+            n = self._readback(num_rows, oks)
         cols = {
             nm: Column(data[nm], t, validity=validity.get(nm), dictionary=dic,
                        lengths=data.get(_nested_key(nm, "lengths")),

@@ -12,7 +12,8 @@ from __future__ import annotations
 
 import threading
 import time
-from typing import Dict, List, Tuple
+from collections import deque
+from typing import Deque, Dict, List, Tuple
 
 
 class CounterStat:
@@ -23,7 +24,7 @@ class CounterStat:
 
     def __init__(self):
         self.total = 0
-        self._events: List[Tuple[float, int]] = []
+        self._events: Deque[Tuple[float, int]] = deque()
         self._lock = threading.Lock()
 
     def update(self, n: int = 1) -> None:
@@ -33,7 +34,7 @@ class CounterStat:
             self._events.append((now, n))
             cutoff = now - 60.0
             while self._events and self._events[0][0] < cutoff:
-                self._events.pop(0)
+                self._events.popleft()
 
     def one_minute_count(self) -> int:
         cutoff = time.time() - 60.0
@@ -71,12 +72,18 @@ class MetricsRegistry:
         self._lock = threading.Lock()
 
     def counter(self, name: str) -> CounterStat:
-        with self._lock:
-            return self._counters.setdefault(name, CounterStat())
+        c = self._counters.get(name)
+        if c is None:
+            with self._lock:
+                c = self._counters.setdefault(name, CounterStat())
+        return c
 
     def distribution(self, name: str) -> DistributionStat:
-        with self._lock:
-            return self._dists.setdefault(name, DistributionStat())
+        d = self._dists.get(name)
+        if d is None:
+            with self._lock:
+                d = self._dists.setdefault(name, DistributionStat())
+        return d
 
     def snapshot(self) -> List[dict]:
         out = []

@@ -6,12 +6,12 @@ EXPLAIN ANALYZE rendering (``operator/ExplainAnalyzeOperator.java:34``,
 ``sql/planner/planprinter/``).  Eager mode times each operator around its
 device sync; compiled mode enqueues a fragment's ops without waiting for
 the device, so per-op time there is a profiler concern (``torch.profiler``).
+A statement's host timeline is its ``QueryTrace`` (``../trace.py``).
 """
 
 from __future__ import annotations
 
 import threading
-import time
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Tuple
 
@@ -93,11 +93,3 @@ class QueryStats:
             lines.append(f"{pad}{head}")
         for i, child in enumerate(node.children):
             self._render(child, path + (i,), indent + 1, lines)
-
-
-class Timer:
-    def __init__(self):
-        self.t0 = time.time()
-
-    def stop(self) -> float:
-        return time.time() - self.t0

@@ -80,7 +80,8 @@ class DynamicTable(Table):
 
 
 class QueryHistory:
-    """EventBus listener retaining recent query lifecycle state."""
+    """EventBus listener retaining recent query lifecycle state: the last
+    ``limit`` statements, each also found by its id until it leaves."""
 
     def __init__(self, limit: int = 1000):
         self.entries: deque = deque(maxlen=limit)
@@ -92,6 +93,10 @@ class QueryHistory:
             e = {"query_id": event.query_id, "user": event.user,
                  "query": event.sql, "state": "RUNNING",
                  "created": event.ts, "wall_s": 0.0, "rows": 0}
+            if len(self.entries) == self.entries.maxlen:
+                gone = self.entries[0]
+                if self.by_id.get(gone["query_id"]) is gone:
+                    del self.by_id[gone["query_id"]]
             self.by_id[event.query_id] = e
             self.entries.append(e)
         if event.kind == "completed":

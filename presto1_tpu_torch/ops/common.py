@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from ..batch import Column
+from ..trace import host_read
 from .kernels.gather import gather_rows
 
 INT64_MAX = np.iinfo(np.int64).max
@@ -45,7 +46,7 @@ def key_ranges(cols: Sequence[Column], num_rows) -> List[Tuple[int, int]]:
             continue
         lo = torch.min(torch.where(live, data, INT64_MAX))
         hi = torch.max(torch.where(live, data, -INT64_MAX))
-        lo_i, hi_i = (int(v) for v in torch.stack([lo, hi]).tolist())
+        lo_i, hi_i = host_read(torch.stack([lo, hi]), torch.Tensor.tolist)
         if lo_i > hi_i:  # all-null / empty
             lo_i, hi_i = 0, 0
         out.append((lo_i, hi_i))
