@@ -1274,14 +1274,21 @@ def phase_q6_engine(catalog) -> dict:
     launches = F.LAUNCHES
     steps = (after_sql, after_compile - after_sql, after_call - after_compile,
              launches - after_call)
-    if steps != (1, 1, 1, reps):
+    # the block's first run is the capture; its replays call no wrapper
+    if steps != (1, 1, 1, 1) or cq.graph_state != "captured":
         raise AssertionError(f"launches per step {steps}, expected "
-                             f"(1, 1, 1, {reps}): the main path did not go "
-                             f"through the kernel once per run")
+                             f"(1, 1, 1, 1): the main path did not go "
+                             f"through the kernel once per run, or the "
+                             f"statement was not captured "
+                             f"({cq.graph_reason})")
     if rows_out != 1:
         raise AssertionError(f"block_run returned {rows_out} rows")
     _assert_resident(cq, n)
-    for what, got in (("Engine.sql", got_sql), ("CompiledQuery()", got_cq)):
+    got_replay = revenue(cq())
+    if cq.graph_state != "captured" or cq.graph_reason is not None:
+        raise AssertionError(f"Q6 did not replay: {cq.graph_reason}")
+    for what, got in (("Engine.sql", got_sql), ("CompiledQuery()", got_cq),
+                      ("the replay", got_replay)):
         if got != want_sum:
             raise AssertionError(f"{what}: revenue {got} != numpy "
                                  f"{want_sum}")
@@ -1500,30 +1507,47 @@ def _engine_steps(engine, sql: str, check, reps: int) -> dict:
     marks.append(read())
     rows_out = cq.block_run(reps=reps)
     marks.append(read())
+    if cq.graph_state != "captured":
+        raise AssertionError(f"the statement was not captured into a CUDA "
+                             f"graph: {cq.graph_reason}")
     # a compiled run enqueues its work without waiting for the card: a
-    # synchronising call anywhere in its fragments raises here (the one
-    # readback is not part of ``_run``)
+    # synchronising call anywhere in its fragments, or in a replay of its
+    # graph and the copy of its outputs, raises here (the one readback is
+    # part of neither)
     torch.cuda.set_sync_debug_mode("error")
     try:
         cq._run()
+        cq._execute(None)
     finally:
         torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
+    # one more call replays the graph: its answer too is held against the
+    # host reference and the eager run
+    replayed = cq()
+    if cq.graph_state != "captured" or cq.graph_reason is not None:
+        raise AssertionError(f"the statement did not replay: "
+                             f"{cq.graph_reason}")
     check(eager, "Engine.sql")
     check(compiled, "CompiledQuery()")
+    check(replayed, "the replay")
+    _same_batches(eager, replayed, "eager against the replay")
     if rows_out != compiled.num_rows:
         raise AssertionError(f"block_run returned {rows_out} rows, cq() "
                              f"{compiled.num_rows}")
     names = ("sql", "compile", "call", f"block_run_{reps}")
     steps = {k: {s: marks[i + 1][k] - marks[i][k]
                  for i, s in enumerate(names)} for k in marks[0]}
+    # ``cq()`` was the eager warm-up; ``block_run`` captured its first run
+    # (every wrapper called once) and replayed the graph for every run,
+    # which calls no wrapper
     for k, st in steps.items():
-        if st[names[3]] != reps * st["call"]:
+        if st[names[3]] != st["call"]:
             raise AssertionError(
-                f"{k}: launches per step {st}: a compiled run does not "
-                f"launch the same kernels every time")
+                f"{k}: launches per step {st}: the capture did not launch "
+                f"the warm-up's kernels, or a replay called a wrapper")
     return {"cq": cq, "eager": eager, "compiled": compiled,
-            "launches": marks[-1], "launches_per_step": steps}
+            "replayed": replayed, "launches": marks[-1],
+            "launches_per_step": steps}
 
 
 def _same_batches(a, b, what: str) -> None:
@@ -1624,7 +1648,7 @@ def phase_q1_engine(catalog) -> dict:
     _same_batches(run["eager"], run["compiled"], "Q1")
     steps = run["launches_per_step"]
     if steps["dense_group_agg"] != {"sql": 1, "compile": 1, "call": 1,
-                                    f"block_run_{reps}": reps}:
+                                    f"block_run_{reps}": 1}:
         raise AssertionError(f"Q1 launched dense_group_agg "
                              f"{steps['dense_group_agg']}: not once per run")
     if steps["gather"]["call"] < 1 or steps["compact"]["call"] < 1:

@@ -47,6 +47,8 @@ output.
 
 from __future__ import annotations
 
+import logging
+import threading
 from dataclasses import replace
 from typing import Dict, List, Optional, Tuple
 
@@ -59,7 +61,8 @@ from ..batch import (
 )
 from ..expr import ir
 from ..expr.eval import (
-    _common_pair, bind_string_ops, eval_expr, lookups_on_device,
+    _common_pair, bind_string_ops, eval_expr, host_tables_read,
+    lookups_on_device,
 )
 from ..ops import AggSpec, filter_batch, global_aggregate, group_aggregate
 from ..ops.filter import filter_mask
@@ -68,6 +71,7 @@ from ..ops.hashagg import _guard_limb_total
 from ..ops.join import cross_join, hash_join, merge_join_applicable
 from ..ops.kernels.dyncopy import concat_rows
 from ..ops.kernels.gather import gather_rows
+from ..ops.kernels import scatter
 from ..ops.kernels.scatter import scatter_distinct
 from ..ops.segments import compact_indices
 from ..ops.sort import SortKey, limit_batch, sort_batch
@@ -77,8 +81,11 @@ from ..sql.logical import (
     Project, Scan, SingleRow, Sort, Union, Unnest, WindowNode,
 )
 from ..trace import TRACE, host_read, span
+from .cuda_graph import StatementGraph
 
 Path = Tuple[int, ...]
+
+_LOG = logging.getLogger(__name__)
 
 
 class ExecError(Exception):
@@ -1494,6 +1501,12 @@ class CompiledQuery:
     tensors, no host syncs inside or between them), and the one readback
     happens at the end of ``__call__`` / ``block_run``.
     granularity='single' runs the whole pipeline as one fragment.
+
+    On a CUDA device a statement's second call captures every fragment
+    into one CUDA graph (``exec/cuda_graph.py``), and later calls replay
+    it: one launch a run in place of hundreds (``_execute`` says when).
+    ``graph_state`` and ``graph_reason`` say whether it replays, and why
+    not where it runs eagerly.
     """
 
     def __init__(self, catalog, plan: LogicalNode,
@@ -1551,8 +1564,9 @@ class CompiledQuery:
         # scan inputs stay resident on the device across runs (uploaded
         # before the record is extrapolated: the range resolver reads the
         # same cached columns)
-        self.inputs = Executor(catalog, device=self.device,
-                               stubs=self.external).scan_inputs(plan)
+        self._inputs = Executor(catalog, device=self.device,
+                                stubs=self.external).scan_inputs(plan)
+        self._inputs_replaced = False
         # fragment-boundary capacities from discovery: a selective
         # operator's compiled output otherwise keeps its INPUT-sized
         # buffers (no _shrink when compiled), and every downstream fragment
@@ -1604,6 +1618,37 @@ class CompiledQuery:
             self._stages.append(
                 (root, children[root],
                  self._make_fn(root, _node_at(plan, root), children[root])))
+
+        # CUDA-graph replay (``_execute``): "pending" until the call after
+        # an eager warm-up captures, then "captured"; "eager" for good
+        # where no capture can serve the statement.  ``graph_reason`` says
+        # why the latest call ran eagerly (None after a replay).
+        self.graph_state, self.graph_reason = "pending", None
+        self._graph_never: Optional[str] = None
+        self._graph: Optional[StatementGraph] = None
+        self._graph_lock = threading.Lock()
+        self._warm_compactions: Optional[int] = None
+        self._compiled_ptrs = self._input_ptrs()
+        self._reasons_logged: set = set()
+        if self.external:
+            self._no_graph("the statement has external inputs (stubs): "
+                           "each call brings its own batches")
+        elif self.device.type != "cuda":
+            self._no_graph(f"the device is {self.device.type}: a CUDA "
+                           f"graph needs a CUDA device")
+
+    @property
+    def inputs(self) -> Optional[Dict[str, torch.Tensor]]:
+        """{symbol: device tensor} of every scan column the fragments read
+        (``Executor.scan_inputs``), resident across runs.  Replacing them
+        (grouped execution swaps in each shard's) ends CUDA-graph replay
+        for this statement."""
+        return self._inputs
+
+    @inputs.setter
+    def inputs(self, value) -> None:
+        self._inputs = value
+        self._inputs_replaced = True
 
     def _make_fn(self, root: Path, node: LogicalNode,
                  child_roots: List[Path]):
@@ -1669,13 +1714,6 @@ class CompiledQuery:
             return data, validity, out.num_rows, ok
 
         return fn
-
-    def precompile(self, max_workers: Optional[int] = None) -> None:
-        """No-op.  The reference lowers and compiles its fragment programs
-        up front on a thread pool because its ahead-of-time compiler
-        charges a large cost per program; here a fragment is a Python
-        callable over eager tensor ops and there is nothing to compile.
-        (CUDA-graph capture of a fragment would hang here: ROADMAP A8.)"""
 
     def _wire(self, results: Dict[Path, tuple], child_roots,
               consume: bool) -> dict:
@@ -1757,10 +1795,25 @@ class CompiledQuery:
         data, validity, num_rows, _ = results[()]
         return data, validity, num_rows, oks
 
-    def _readback(self, num_rows, oks) -> int:
-        """The run's single device->host transfer: the row count and the
-        AND of every overflow flag, in one tensor."""
+    def _pair(self, num_rows, oks):
+        """What the readback reads of one run: the row count where it is
+        a number and no overflow flag was raised, else an int64 device
+        tensor ``[count, ok]``, ``ok`` the AND of every overflow flag."""
         if isinstance(num_rows, int) and not oks:
+            return num_rows
+        ok = torch.ones((), dtype=torch.bool, device=self.device)
+        for o in oks:
+            ok = ok & o
+        n = num_rows if not isinstance(num_rows, int) else torch.full(
+            (), num_rows, dtype=torch.int64, device=self.device)
+        return torch.stack([n.to(torch.int64), ok.to(torch.int64)])
+
+    def _read(self, pairs: list) -> int:
+        """The single device->host transfer of one or more runs (a
+        ``_pair`` each): the last run's row count.  Raises ExecError
+        unless every run's overflow flags hold."""
+        flags = [p for p in pairs if isinstance(p, torch.Tensor)]
+        if not flags:
             # the run's one wait for the device, traced on any device (a
             # trace records waits by site)
             trace = TRACE.get()
@@ -1768,25 +1821,107 @@ class CompiledQuery:
                 _synchronize(self.device)
             else:
                 trace.wait(_synchronize, self.device, 0)
-            return num_rows
-        ok = torch.ones((), dtype=torch.bool, device=self.device)
-        for o in oks:
-            ok = ok & o
-        n = num_rows if not isinstance(num_rows, int) else torch.full(
-            (), num_rows, dtype=torch.int64, device=self.device)
-        n_host, ok_host = host_read(torch.stack(
-            [n.to(torch.int64), ok.to(torch.int64)]), torch.Tensor.tolist)
-        if not ok_host:
+            return pairs[-1]
+        got = host_read(flags[0] if len(flags) == 1 else torch.stack(flags),
+                        torch.Tensor.tolist)
+        rows = [got] if len(flags) == 1 else got
+        if not all(ok for _, ok in rows):
             raise ExecError(
                 "compiled-plan buffer overflow: data outgrew the "
                 "discovery-time capacities -- re-run Engine.compile()")
-        return int(n_host)
+        return pairs[-1] if isinstance(pairs[-1], int) else int(rows[-1][0])
+
+    def _eager(self, stubs):
+        data, validity, num_rows, oks = self._run(stubs)
+        return data, validity, self._pair(num_rows, oks)
+
+    def _execute(self, stubs: Optional[Dict[Path, RecordBatch]]):
+        """One run, ``(data, validity, pair)`` (``_pair``): one replay of
+        the statement's CUDA graph where a graph can serve this call, else
+        the fragments run eagerly and ``graph_reason`` says why.
+
+        The first call that could replay runs eagerly (it loads the
+        kernels and counts its compactions); the next one captures every
+        fragment, in stage order, into one graph and replays it.  A call
+        replays only on a CUDA device, without external inputs, with the
+        scan inputs the statement was compiled with, and while no other
+        thread replays the same graph."""
+        why = self._graph_blocker()
+        if why is None and not self._graph_lock.acquire(blocking=False):
+            why = "another thread is replaying this statement's graph"
+        if why is None:
+            try:
+                if self._warm_compactions is None:
+                    before = scatter.COMPACT_LAUNCHES
+                    out = self._eager(stubs)
+                    self._warm_compactions = \
+                        scatter.COMPACT_LAUNCHES - before
+                    self._eager_because(
+                        "warm-up: the first call runs eagerly, the next one "
+                        "captures the statement's CUDA graph")
+                    return out
+                out = self._replay()
+                if out is not None:
+                    return out
+                why = self.graph_reason
+            finally:
+                self._graph_lock.release()
+        self._eager_because(why)
+        return self._eager(stubs)
+
+    def _input_ptrs(self):
+        return None if self.inputs is None else [
+            (k, t.data_ptr()) for k, t in self.inputs.items()]
+
+    def _graph_blocker(self) -> Optional[str]:
+        """Why this call cannot replay a graph; None when it may."""
+        if self._inputs_replaced or self._input_ptrs() != self._compiled_ptrs:
+            return ("its scan inputs are not the ones it was compiled with "
+                    "(grouped execution swaps in each shard's)")
+        return self._graph_never
+
+    def _no_graph(self, why: str) -> None:
+        """No capture will serve this statement, for ``why``."""
+        self._graph_never = why
+        self.graph_state = "eager"
+        self._eager_because(why)
+
+    def _eager_because(self, why: str) -> None:
+        self.graph_reason = why
+        if why not in self._reasons_logged:
+            self._reasons_logged.add(why)
+            _LOG.info("compiled statement runs eagerly: %s", why)
+
+    def _replay(self):
+        """Capture the graph on its first use, then replay it; None when
+        the capture failed (the statement runs eagerly from then on)."""
+        if self._graph is None:
+            try:
+                with host_tables_read() as tables:
+                    graph = StatementGraph.capture(
+                        lambda: self._eager(None), self.device,
+                        self._warm_compactions)
+            except Exception as e:  # the statement still runs, eagerly
+                _LOG.warning("CUDA graph capture failed; the statement "
+                             "runs eagerly", exc_info=True)
+                self._no_graph(f"the capture failed: {type(e).__name__}: "
+                               f"{e}")
+                return None
+            # what the graph reads, held for its life: the scan inputs,
+            # and the dictionary tables its run looked up (a cache that
+            # evicts)
+            graph.keep = list(self.inputs.values()) + tables
+            self._graph, self.graph_state = graph, "captured"
+        with span("op:GraphReplay"):
+            out = self._graph.replay()
+        self.graph_reason = None
+        return out
 
     def __call__(self, stubs: Optional[Dict[Path, RecordBatch]] = None
                  ) -> RecordBatch:
         with span("run"):
-            data, validity, num_rows, oks = self._run(stubs)
-            n = self._readback(num_rows, oks)
+            data, validity, pair = self._execute(stubs)
+            n = self._read([pair])
         cols = {
             nm: Column(data[nm], t, validity=validity.get(nm), dictionary=dic,
                        lengths=data.get(_nested_key(nm, "lengths")),
@@ -1842,8 +1977,4 @@ class CompiledQuery:
         the one readback of the last run's row count and of every run's
         overflow flags closes the batch, so the wall time around this call
         is steady-state throughput."""
-        all_oks = []
-        for _ in range(reps):
-            data, validity, num_rows, oks = self._run(stubs)
-            all_oks += oks
-        return self._readback(num_rows, all_oks)
+        return self._read([self._execute(stubs)[2] for _ in range(reps)])

@@ -28,8 +28,10 @@ from __future__ import annotations
 
 import re
 import threading
+from contextlib import contextmanager
+from contextvars import ContextVar
 from functools import lru_cache
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -956,6 +958,11 @@ _HOST_TABLES_MAX = 256
 _HOST_TABLES_LOCK = threading.Lock()  # a worker's tasks share the module
 
 
+# the tables handed out in a ``host_tables_read()`` block of this context
+_TABLES_READ: ContextVar[Optional[list]] = ContextVar("tables_read",
+                                                      default=None)
+
+
 def _host_tables(kind: str, dicts, device, make):
     """``make()`` for these dictionaries on ``device``, made once and kept
     (with the dictionaries, so that their ids stay theirs)."""
@@ -963,12 +970,29 @@ def _host_tables(kind: str, dicts, device, make):
     with _HOST_TABLES_LOCK:
         hit = _HOST_TABLES.get(key)
         if hit is not None and all(a is b for a, b in zip(hit[0], dicts)):
-            return hit[1]
-        out = make()
-        if len(_HOST_TABLES) >= _HOST_TABLES_MAX:
-            _HOST_TABLES.pop(next(iter(_HOST_TABLES)))
-        _HOST_TABLES[key] = (tuple(dicts), out)
-        return out
+            out = hit[1]
+        else:
+            out = make()
+            if len(_HOST_TABLES) >= _HOST_TABLES_MAX:
+                _HOST_TABLES.pop(next(iter(_HOST_TABLES)))
+            _HOST_TABLES[key] = (tuple(dicts), out)
+    read = _TABLES_READ.get()
+    if read is not None:
+        read.append(out)
+    return out
+
+
+@contextmanager
+def host_tables_read():
+    """A list of every table handed out for dictionaries inside the block,
+    in this context: a CUDA graph captured over a compiled run reads them
+    on every replay, and keeps them, since an entry can leave the cache."""
+    read: list = []
+    token = _TABLES_READ.set(read)
+    try:
+        yield read
+    finally:
+        _TABLES_READ.reset(token)
 
 
 def _merged(dicts, device):

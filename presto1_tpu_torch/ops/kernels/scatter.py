@@ -311,11 +311,31 @@ def reserve_graph_states(dev: torch.device, count: int,
     if dev.type == "cuda" and _capturing():
         raise RuntimeError("reserve_graph_states: called during a CUDA "
                            "graph capture; call it before the capture")
-    _SPARE.setdefault(dev.index, []).extend(
+    _SPARE.setdefault(_index(dev), []).extend(
         torch.zeros((STATE_WORDS + tiles,), dtype=torch.int64, device=dev)
         for _ in range(count))
-    if dev.type == "cuda":  # a graph may replay on another stream
-        torch.cuda.synchronize(dev)
+    if dev.type == "cuda":
+        # a graph may replay on another stream: the zeros are written once
+        # this stream is done.  Not the whole device: another thread's
+        # capture may be under way, and a device-wide wait breaks it
+        torch.cuda.current_stream(dev).synchronize()
+
+
+def eager_state_tiles(dev: torch.device) -> int:
+    """The most look-back tiles that a launch outside a capture on ``dev``
+    has needed so far, at least ``MIN_STATE_TILES``: what a state set aside
+    for capturing the same launches must hold."""
+    return max([st.numel() - STATE_WORDS for (index, _), st in _STATE.items()
+                if index == _index(dev)] + [MIN_STATE_TILES])
+
+
+def _index(dev: torch.device):
+    """``dev``'s index, under which its states are kept: the current
+    device's for a CUDA device given without one (``"cuda"``), as a
+    tensor's device always has one."""
+    if dev.type == "cuda" and dev.index is None:
+        return torch.cuda.current_device()
+    return dev.index
 
 
 def _state(dev, stream: int, tiles: int, capturing: bool) -> torch.Tensor:

@@ -189,7 +189,7 @@ def test_compiled_records_and_fragments(engines):
     data, validity, num_rows, oks = cq._run()
     assert isinstance(num_rows, torch.Tensor) and num_rows.dim() == 0
     assert oks and all(isinstance(o, torch.Tensor) for o in oks)
-    assert cq._readback(num_rows, oks) == 4
+    assert cq._read([cq._pair(num_rows, oks)]) == 4
 
 
 def test_clustered_is_recorded_and_sticky(engines):

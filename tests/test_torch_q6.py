@@ -124,7 +124,6 @@ def test_q6_matches_reference_and_oracle(engines, mode):
         assert cq.block_run(reps=3) == 1
         assert cq.scan_tables == ["lineitem"]
         assert all(t.device.type == "cpu" for t in cq.inputs.values())
-        cq.precompile()
         got = cq()
     else:
         sess = Session()
