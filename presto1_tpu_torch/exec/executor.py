@@ -47,6 +47,7 @@ output.
 
 from __future__ import annotations
 
+import json
 import logging
 import threading
 from dataclasses import replace
@@ -80,7 +81,7 @@ from ..sql.logical import (
     Aggregate, Filter, Join, Limit, LogicalNode, MarkDistinct, Output,
     Project, Scan, SingleRow, Sort, Union, Unnest, WindowNode,
 )
-from ..trace import TRACE, host_read, span
+from ..trace import TRACE, QueryTrace, host_read, operator_counts, span
 from .cuda_graph import StatementGraph
 
 Path = Tuple[int, ...]
@@ -90,6 +91,49 @@ _LOG = logging.getLogger(__name__)
 
 class ExecError(Exception):
     pass
+
+
+# the keys of plan_to_json that hold a node's children
+_CHILD_KEYS = ("child", "left", "right", "inputs")
+
+
+def plan_node_id(trace, node: LogicalNode) -> int:
+    """``node``'s id within the statement ``trace`` records: subtrees of
+    one structure (their serialised form) share an id, whichever object
+    and path execute them."""
+    got = trace.node_ids.get(id(node))
+    if got is None:
+        from ..sql.serde import plan_to_json
+
+        try:
+            tree = plan_to_json(node)
+        except TypeError:  # a node or expression with no serialised form
+            tree = None
+        return _number_subtrees(trace, node, tree)
+    return got[1]
+
+
+def _number_subtrees(trace, node: LogicalNode, tree) -> int:
+    """Give ``node`` and every subtree below it that ``trace`` has not
+    numbered yet its id, and return ``node``'s: the id of its own fields
+    (``tree``, its ``plan_to_json`` form) and its children's ids."""
+    got = trace.node_ids.get(id(node))
+    if got is not None:
+        return got[1]
+    kids = node.children
+    if tree is None:
+        local, parts = repr(node), [None] * len(kids)
+    else:  # the children's forms, in ``children``'s order
+        local = {k: v for k, v in tree.items() if k not in _CHILD_KEYS}
+        parts = [tree[k] for k in _CHILD_KEYS[:3] if k in tree] \
+            + list(tree.get("inputs", []))
+    key = json.dumps([type(node).__name__, local,
+                      [_number_subtrees(trace, c, p)
+                       for c, p in zip(kids, parts)]],
+                     sort_keys=True, default=str)
+    sid = trace.subtrees.setdefault(key, len(trace.subtrees))
+    trace.node_ids[id(node)] = (node, sid)
+    return sid
 
 
 class Executor:
@@ -217,7 +261,8 @@ class Executor:
         trace = TRACE.get()
         if trace is None:
             return self._operator(node, path)
-        with trace.span("op:" + type(node).__name__):
+        with trace.span("op:" + type(node).__name__,
+                        plan_node_id(trace, node)):
             return self._operator(node, path)
 
     def _operator(self, node: LogicalNode, path: Path) -> RecordBatch:
@@ -1628,6 +1673,9 @@ class CompiledQuery:
         self._graph: Optional[StatementGraph] = None
         self._graph_lock = threading.Lock()
         self._warm_compactions: Optional[int] = None
+        # what one replay executes, counted at capture: operator
+        # executions and the reruns among them (``trace.operator_counts``)
+        self.operators: Optional[Dict[str, int]] = None
         self._compiled_ptrs = self._input_ptrs()
         self._reasons_logged: set = set()
         if self.external:
@@ -1896,6 +1944,12 @@ class CompiledQuery:
         """Capture the graph on its first use, then replay it; None when
         the capture failed (the statement runs eagerly from then on)."""
         if self._graph is None:
+            # the capture's operator spans, in the statement's trace or in
+            # one of its own, count what each replay executes
+            outer = TRACE.get()
+            counted = outer if outer is not None else QueryTrace("capture")
+            first = len(counted.spans)
+            token = None if outer is not None else TRACE.set(counted)
             try:
                 with host_tables_read() as tables:
                     graph = StatementGraph.capture(
@@ -1907,12 +1961,16 @@ class CompiledQuery:
                 self._no_graph(f"the capture failed: {type(e).__name__}: "
                                f"{e}")
                 return None
+            finally:
+                if token is not None:
+                    TRACE.reset(token)
+            self.operators = operator_counts(counted.spans[first:])
             # what the graph reads, held for its life: the scan inputs,
             # and the dictionary tables its run looked up (a cache that
             # evicts)
             graph.keep = list(self.inputs.values()) + tables
             self._graph, self.graph_state = graph, "captured"
-        with span("op:GraphReplay"):
+        with span("op:GraphReplay", self.operators):
             out = self._graph.replay()
         self.graph_reason = None
         return out

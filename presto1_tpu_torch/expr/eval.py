@@ -1431,6 +1431,12 @@ def _label(expr: Expr) -> str:
     return "?"
 
 
+def _texts(v) -> np.ndarray:
+    """A string operand as a 1-D str array: a literal operand (a scalar
+    beside the dictionary's column) as one entry."""
+    return np.atleast_1d(np.asarray(v, dtype=str))
+
+
 def _eval_strings(expr: Expr, values: np.ndarray):
     """Host evaluation of a string subtree over dictionary entries."""
     if isinstance(expr, ColumnRef):
@@ -1722,13 +1728,13 @@ def _eval_strings(expr: Expr, values: np.ndarray):
             scale = _scale_of(expr.type)
             return np.array(
                 [int(round(float(v) * 10 ** scale))
-                 for v in np.asarray(args[0], dtype=str)], dtype=np.int64)
+                 for v in _texts(args[0])], dtype=np.int64)
         if expr.type.kind == "date" and expr.args[0].type.is_string:
             epoch_d = np.datetime64("1970-01-01", "D")
             return np.array(
                 [int((np.datetime64(str(v).strip(), "D") - epoch_d)
                      / np.timedelta64(1, "D"))
-                 for v in np.asarray(args[0], dtype=str)], dtype=np.int32)
+                 for v in _texts(args[0])], dtype=np.int32)
         if expr.type.kind in ("timestamp", "timestamptz") \
                 and expr.args[0].type.is_string:
             epoch_us = np.datetime64("1970-01-01T00:00:00", "us")
@@ -1736,7 +1742,7 @@ def _eval_strings(expr: Expr, values: np.ndarray):
                 [int((np.datetime64(str(v).strip().replace(" ", "T", 1),
                                     "us") - epoch_us)
                      / np.timedelta64(1, "us"))
-                 for v in np.asarray(args[0], dtype=str)], dtype=np.int64)
+                 for v in _texts(args[0])], dtype=np.int64)
         return np.asarray(args[0]).astype(expr.type.np_dtype)
     raise NotImplementedError(f"host string op {fn}")
 

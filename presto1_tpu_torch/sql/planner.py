@@ -284,6 +284,28 @@ class Planner:
         aggcalls.append(AggCall(sym, "count", expr, False, BIGINT))
         return ir.call("cast", ir.ColumnRef(sym, BIGINT), type=DOUBLE)
 
+    def _grouping_symbol(self, arg: ast.Expr, conv, group_by, group_syms,
+                         aliases) -> str:
+        """The group symbol of the column a grouping() argument names (the
+        GROUP BY expression itself, or a column it groups by); a PlanError
+        naming the argument where it is no grouping column."""
+        for j, g in enumerate(group_by):
+            if arg == g or (isinstance(g, ast.Identifier)
+                            and g.qualifier is None
+                            and aliases.get(g.name) == arg):
+                return group_syms[j]
+        try:
+            e = conv.convert(arg)
+        except PlanError:
+            e = None
+        if isinstance(e, ir.ColumnRef) and \
+                e.name in group_syms[:len(group_by)]:
+            return e.name
+        text = ".".join(arg.parts) if isinstance(arg, ast.Identifier) \
+            else repr(arg)
+        raise PlanError(f"grouping() argument {text} is not a grouping "
+                        f"column")
+
     def _rewrite_agg(self, a: ast.FuncCall, fn: str, conv, aggcalls) -> ir.Expr:
         """Decompose statistical aggregates into sum/count moments.
 
@@ -663,6 +685,13 @@ class Planner:
                   + [o.expr for o in sel.order_by]):
             _collect_aggs(e, agg_asts)
         has_agg = bool(agg_asts) or bool(sel.group_by)
+        grouping_calls: List[ast.FuncCall] = []
+        for e in ([i.expr for i in sel.items if i.expr is not None]
+                  + ([sel.having] if sel.having else [])
+                  + [o.expr for o in sel.order_by]):
+            _collect_grouping(e, grouping_calls)
+        if grouping_calls and not sel.group_by:
+            raise PlanError("grouping() needs a GROUP BY")
 
         select_alias_map: Dict[str, ast.Expr] = {}
         for i in sel.items:
@@ -747,12 +776,20 @@ class Planner:
             if conv.used_outer:
                 raise PlanError("correlated reference in aggregate arguments")
 
+            # grouping(c1, ..., cn): the group symbol of each argument
+            grouping_args = [
+                [self._grouping_symbol(a, conv, sel.group_by, group_syms,
+                                       select_alias_map) for a in g.args]
+                for g in grouping_calls]
             if pre_extra:
                 passthrough = [(s, ir.ColumnRef(s, t))
                                for s, t in node.schema.items()]
                 node = Project(node, passthrough + pre_extra)
             if sel.grouping_sets is None:
                 node = Aggregate(node, group_syms, aggcalls)
+                # one grouping set holding every group column: all bits 0
+                for g in grouping_calls:
+                    agg_map[id(g)] = ir.Literal(0, BIGINT)
             else:
                 # GROUPING SETS/ROLLUP/CUBE: one Aggregate per set over the
                 # shared child, absent group columns projected as typed
@@ -760,6 +797,8 @@ class Planner:
                 # reference's GroupIdNode + repeated-aggregation rewrite).
                 child = node
                 n_explicit = len(sel.group_by)
+                grouping_syms = [self.symbol("grouping")
+                                 for _ in grouping_calls]
                 extra_syms = group_syms[n_explicit:]  # decorrelation keys
                 types = {s: child.schema[s] for s in group_syms}
                 branches = []
@@ -784,6 +823,13 @@ class Planner:
                             outs.append((sym, ir.Literal(None, types[sym])))
                     for a in aggcalls:
                         outs.append((a.symbol, ir.ColumnRef(a.symbol, a.type)))
+                    # grouping(): Trino's bitmask, bit n-i set where the
+                    # i-th argument is not in this branch's set
+                    for sym, args in zip(grouping_syms, grouping_args):
+                        mask = sum(1 << (len(args) - 1 - i)
+                                   for i, a in enumerate(args)
+                                   if a not in seen)
+                        outs.append((sym, ir.Literal(mask, BIGINT)))
                     branches.append(Project(agg_n, outs))
                 seen_u = set()
                 u_outputs = []
@@ -795,6 +841,9 @@ class Planner:
                 for a in aggcalls:
                     u_outputs.append(
                         (a.symbol, a.type, [a.symbol] * len(branches)))
+                for g, sym in zip(grouping_calls, grouping_syms):
+                    u_outputs.append((sym, BIGINT, [sym] * len(branches)))
+                    agg_map[id(g)] = ir.ColumnRef(sym, BIGINT)
                 node = Union(branches, u_outputs)
             scope = Scope(group_field_map, outer)
 
@@ -1024,6 +1073,14 @@ def _collect_aggs(e: ast.Expr, out: List[ast.FuncCall]):
         return  # no nested aggregates
     for child in _ast_children(e):
         _collect_aggs(child, out)
+
+
+def _collect_grouping(e: ast.Expr, out: List[ast.FuncCall]):
+    if isinstance(e, ast.FuncCall) and e.name == "grouping":
+        out.append(e)
+        return
+    for child in _ast_children(e):
+        _collect_grouping(child, out)
 
 
 def _collect_windows(e: ast.Expr, out: List[ast.WindowCall]):

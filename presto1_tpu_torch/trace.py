@@ -29,18 +29,26 @@ class QueryTrace:
 
     ``spans``: ``[name, start_ns, end_ns, parent, detail]`` in the order
     they began; ``parent`` is the index of the span open when it began
-    (None at a root), ``detail`` a fragment's root path or a wait's bytes.
+    (None at a root), ``detail`` a fragment's root path, a wait's bytes,
+    an operator's plan node id (``node_ids``) or a graph replay's
+    operator counts (``operator_counts``).
     Spans of one trace are opened and closed by one thread, so they nest:
     a child lies inside its parent, and siblings do not overlap.  A
     statement has two roots, ``statement`` and, once its batch is read,
     ``to_host``."""
 
-    __slots__ = ("query_id", "spans", "_open")
+    __slots__ = ("query_id", "spans", "_open", "node_ids", "subtrees")
 
     def __init__(self, query_id: str):
         self.query_id = query_id
         self.spans: List[list] = []
         self._open: Optional[int] = None
+        # the statement's plan node ids: id(node) -> (node, id), one id
+        # for every subtree of one structure (``subtrees``: a node's own
+        # fields and its children's ids -> id), so two executions of equal
+        # subtrees share it
+        self.node_ids: Dict[int, tuple] = {}
+        self.subtrees: Dict[str, int] = {}
 
     def begin(self, name: str, detail=None) -> int:
         i = len(self.spans)
@@ -81,6 +89,19 @@ class QueryTrace:
         keys = ("name", "start_ns", "end_ns", "parent", "detail")
         return {"query_id": self.query_id,
                 "spans": [dict(zip(keys, s)) for s in self.spans]}
+
+
+def operator_counts(spans) -> Dict[str, int]:
+    """Among ``spans``, the operator executions (``op:`` spans but a graph
+    replay's) and the reruns: executions of a plan node id that an
+    earlier one executed, a subtree the statement had computed already."""
+    seen, ops, reruns = set(), 0, 0
+    for s in spans:
+        if s[0].startswith("op:") and s[0] != "op:GraphReplay":
+            ops += 1
+            reruns += s[4] in seen
+            seen.add(s[4])
+    return {"operators": ops, "reruns": reruns}
 
 
 class _Span:
