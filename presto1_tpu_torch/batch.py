@@ -27,6 +27,8 @@ Every constructor that places data takes an explicit ``device``
 
 from __future__ import annotations
 
+import threading
+import weakref
 from dataclasses import dataclass, replace
 from typing import Dict, Optional
 
@@ -217,6 +219,69 @@ def _flat_values(data: np.ndarray, t: SqlType, dictionary) -> np.ndarray:
     return out
 
 
+# id(dictionary) -> (a weak reference to it, {nullable: (values, made)}):
+# each string dictionary's entries as ``to_pylist`` gives them, made when a
+# code first asks for them and dropped with the dictionary (dictionaries
+# are never written in place; a compiled statement returns the same ones
+# on every call).  Keyed by the dictionary, so shared by every engine of
+# the process; ``_DICTIONARY_LOCK`` guards its look-ups and fills.
+_DICTIONARY_VALUES: Dict[int, tuple] = {}
+_DICTIONARY_LOCK = threading.Lock()
+
+
+def _forget_dictionary(key: int, ref) -> None:
+    entry = _DICTIONARY_VALUES.get(key)
+    if entry is not None and entry[0] is ref:
+        _DICTIONARY_VALUES.pop(key, None)
+
+
+def _string_values(dictionary, data: np.ndarray, nullable: bool):
+    """``_flat_values`` of a VARCHAR / CHAR column as an object array
+    whose elements are ``decode``'s: ``dictionary[codes]``'s own (``np.str_``
+    of a 'U' dictionary) in a column without validity, their object cast
+    (``str``) in a nullable one; no 'U' array of the rows is built."""
+    assert dictionary is not None
+    if not len(dictionary):
+        return np.array([""] * len(data), dtype=object)
+    codes = np.clip(data, 0, len(dictionary) - 1)
+    key = id(dictionary)
+    with _DICTIONARY_LOCK:
+        entry = _DICTIONARY_VALUES.get(key)
+        if entry is None or entry[0]() is not dictionary:
+            ref = weakref.ref(dictionary,
+                              lambda r, key=key: _forget_dictionary(key, r))
+            entry = _DICTIONARY_VALUES[key] = (ref, {})
+        form = entry[1].get(nullable)
+        if form is None:
+            form = entry[1][nullable] = (
+                np.empty(len(dictionary), dtype=object),
+                np.zeros(len(dictionary), dtype=bool))
+        values, made = form
+        missing = codes[~made[codes]]
+        if missing.size:
+            new = np.unique(missing)
+            entries = dictionary[new]
+            values[new] = (
+                np.asarray(entries, dtype=object) if nullable else
+                np.fromiter(entries, dtype=object, count=len(new)))
+            made[new] = True
+        return values[codes]
+
+
+def _string_list(col: Column, n) -> list:
+    """``list(col.decode(n))`` of a VARCHAR / CHAR column: the same
+    elements and host reads, its values taken from ``_string_values``."""
+    data = _host(col.data[:n])
+    nullable = col.validity is not None
+    out = _string_values(col.dictionary, data, nullable)
+    if not nullable:
+        return list(out)
+    mask = _host(col.validity[:n])
+    if not mask.all():
+        out[~mask] = None
+    return out.tolist()
+
+
 @dataclass
 class RecordBatch:
     """An ordered set of equal-length columns with a row count."""
@@ -248,11 +313,34 @@ class RecordBatch:
                            num_rows)
 
     def to_pylist(self):
-        with enter(self.trace, "to_host"):
-            cols = {n: c.decode(self.num_rows)
-                    for n, c in self.columns.items()}
-            return [tuple(cols[n][i] for n in self.names)
-                    for i in range(self.num_rows)]
+        """The first ``num_rows`` rows as tuples, in column order.
+
+        Elements are those of ``Column.decode``: a column without validity
+        gives numpy scalars (``np.int64``, ``np.float64`` for a DECIMAL,
+        ``np.str_``, ``np.datetime64``, ...), a nullable column the Python
+        objects of an object cast (``int``, ``float``, ``str``,
+        ``datetime.date``, ...), NULL is ``None``; nested, ``timestamptz``,
+        interval and ``varbinary`` columns give the Python objects
+        ``decode`` builds.  Each column becomes one list (a VARCHAR / CHAR
+        column through ``_string_list``, any other through ``decode``) and
+        the rows are zipped from the lists.  Traced, the ``to_host`` span's
+        detail counts the rows, the columns and, as ``bulk``, the columns
+        read through ``_string_list``."""
+        n, cols = self.num_rows, list(self.columns.values())
+        detail = None if self.trace is None else {
+            "rows": n, "columns": len(cols), "bulk": 0}
+        with enter(self.trace, "to_host", detail):
+            lists = []
+            for c in cols:
+                if c.is_nested or c.type.kind not in ("varchar", "char"):
+                    lists.append(list(c.decode(n)))
+                    continue
+                lists.append(_string_list(c, n))
+                if detail is not None:
+                    detail["bulk"] += 1
+            if not lists:
+                return [() for _ in range(n)]
+            return list(zip(*lists))
 
     def to_pandas(self):
         import pandas as pd

@@ -30,8 +30,9 @@ class QueryTrace:
     ``spans``: ``[name, start_ns, end_ns, parent, detail]`` in the order
     they began; ``parent`` is the index of the span open when it began
     (None at a root), ``detail`` a fragment's root path, a wait's bytes,
-    an operator's plan node id (``node_ids``) or a graph replay's
-    operator counts (``operator_counts``).
+    an operator's plan node id (``node_ids``), a graph replay's
+    operator counts (``operator_counts``) or a readback's rows, columns
+    and columns converted in bulk (``RecordBatch.to_pylist``).
     Spans of one trace are opened and closed by one thread, so they nest:
     a child lies inside its parent, and siblings do not overlap.  A
     statement has two roots, ``statement`` and, once its batch is read,
@@ -158,10 +159,10 @@ def span(name: str, detail=None):
     return _NO_SPAN if trace is None else _Span(trace, name, detail)
 
 
-def enter(trace: Optional[QueryTrace], name: str):
+def enter(trace: Optional[QueryTrace], name: str, detail=None):
     """Span ``name`` of ``trace``, traced on this thread meanwhile (a
     statement's batch read after ``Engine.sql`` returned), or nothing."""
-    return _NO_SPAN if trace is None else _Entered(trace, name, None)
+    return _NO_SPAN if trace is None else _Entered(trace, name, detail)
 
 
 def host_read(x, read=int):
