@@ -120,20 +120,11 @@ def in_turns(fns: dict, rounds: int = 4) -> dict:
     return {name: statistics.median(t) for name, t in times.items()}
 
 
-def _warm_up_for_capture(fn, reps: int) -> None:
-    """Two calls of ``fn``, then a zeroed compaction state set aside for
-    every compaction that ``reps`` calls captured into a graph will make
-    (``scatter.reserve_graph_states``), synchronised."""
-    from presto1_tpu_torch.ops.kernels import scatter as S
-
-    before = S.COMPACT_LAUNCHES
+def _warm_up_for_capture(fn) -> None:
+    """Two calls of ``fn`` outside any capture (the kernels load, the
+    libraries make their first-call set-up), synchronised."""
     for _ in range(2):
         fn()
-    need = -(-(S.COMPACT_LAUNCHES - before) // 2) * reps
-    dev = torch.device("cuda", torch.cuda.current_device())
-    have = len(S._SPARE.get(dev.index, ()))
-    if need > have:
-        S.reserve_graph_states(dev, need - have)
     torch.cuda.synchronize()
 
 
@@ -143,7 +134,7 @@ def device_ms(fn, reps: int = 20, trials: int = 5) -> float:
     CUDA-event time of a replay is divided by ``reps``.  A replay enqueues
     nothing from Python, so the host's cost of a call (which exceeds a short
     kernel's time) stays out of the number."""
-    _warm_up_for_capture(fn, reps)
+    _warm_up_for_capture(fn)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
         for _ in range(reps):
@@ -167,7 +158,7 @@ def replay_outputs(fn, reps: int = 20):
     """What the last of ``reps`` calls of ``fn`` captured into one CUDA
     graph returns after the graph was replayed three times (as
     ``device_ms`` captures and replays them), synchronised."""
-    _warm_up_for_capture(fn, reps)
+    _warm_up_for_capture(fn)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
         for _ in range(reps):
@@ -773,11 +764,6 @@ def phase_kernel_check_gather(gen) -> dict:
     return {"max_abs_err": worst}
 
 
-# the compaction's bodies: the one-launch look-back ``compact`` takes, and
-# the earlier two-pass body it is timed against
-COMPACT_ROUTES = ("lookback", "two_pass")
-
-
 def phase_kernel_check_scatter(gen) -> dict:
     """``scatter_distinct`` against its plain version on the card, exactly
     (one column and several sharing the index and mask), and ``compact``
@@ -809,9 +795,9 @@ def phase_kernel_check_scatter(gen) -> dict:
 
     compactions = 0
 
-    def hold_compact(mask, capacity, what, route="lookback", got=None):
+    def hold_compact(mask, capacity, what, got=None):
         nonlocal compactions, worst
-        idx, count = got or S._compact(mask, capacity, route)
+        idx, count = got or S.compact(mask, capacity)
         torch.cuda.synchronize()
         want = torch.nonzero(mask)[:, 0]
         live = min(capacity, int(want.shape[0]))
@@ -898,71 +884,54 @@ def phase_kernel_check_scatter(gen) -> dict:
             raise AssertionError(f"compact_indices disagrees with "
                                  f"torch.nonzero (capacity {capacity})")
         cases += 1
-    # the compaction, by both bodies: all false, 0.1 %, 3.6 %, 50 % and all
-    # true; row counts around the 16-row lane, the 4096-row tile of the
-    # two-pass body and the 16,384-row tile of the look-back; capacities
-    # below, at and above the count; views 0-15 bytes off the 16-byte grid
-    launches = {}
-    for route in COMPACT_ROUTES:
-        for density in (0.0, 0.001, 0.036, 0.5, 1.0):
-            for n in (1, 15, 16, 17, 4095, 4096, 4097, 16_385, 32_769,
-                      1_000_003, 6_002_010):
-                m = torch.rand((n + 15,), generator=gen,
-                               device="cuda") < density
-                if density == 1.0:
-                    m[:] = True
-                heads = range(16) if n in (17, 4097, 16_385) else \
-                    (0, 7, 15) if n < 10**6 else (0, 3)
-                for lo in heads:
-                    view = m[lo:lo + n]
-                    k = int(view.sum())
-                    for capacity in sorted({0, k // 2, k, k + 100, n + 17}):
-                        before = S.COMPACT_LAUNCHES
-                        hold_compact(view, capacity,
-                                     f"{route}, density {density}, "
-                                     f"n={n}, {lo} bytes off the grid, "
-                                     f"capacity {capacity}", route)
-                        launches.setdefault(route, set()).add(
-                            S.COMPACT_LAUNCHES - before)
+    # the compaction: all false, 0.1 %, 3.6 %, 50 % and all true; row
+    # counts around the 16-row lane, 4096 rows and the 16,384-row tile of
+    # the look-back; capacities below, at and above the count; views 0-15
+    # bytes off the 16-byte grid
+    launches = set()
+    for density in (0.0, 0.001, 0.036, 0.5, 1.0):
+        for n in (1, 15, 16, 17, 4095, 4096, 4097, 16_385, 32_769,
+                  1_000_003, 6_002_010):
+            m = torch.rand((n + 15,), generator=gen, device="cuda") < density
+            if density == 1.0:
+                m[:] = True
+            heads = range(16) if n in (17, 4097, 16_385) else \
+                (0, 7, 15) if n < 10**6 else (0, 3)
+            for lo in heads:
+                view = m[lo:lo + n]
+                k = int(view.sum())
+                for capacity in sorted({0, k // 2, k, k + 100, n + 17}):
+                    before = S.COMPACT_LAUNCHES
+                    hold_compact(view, capacity,
+                                 f"density {density}, n={n}, {lo} bytes "
+                                 f"off the grid, capacity {capacity}")
+                    launches.add(S.COMPACT_LAUNCHES - before)
     # a CUDA graph's replay: 20 calls captured, replayed, and the last
-    # call's indices and count held (the state the look-back keeps between
-    # launches is left zero by each)
+    # call's indices and count held (each captured call zeroes its own
+    # state)
     replayed = {}
     n = 6_002_010
-    for route in COMPACT_ROUTES:
-        for what, m, capacity in (
-                ("3.6 % into 262,144", mask[:n], 262_144),
-                ("all true into n", torch.ones((n,), dtype=torch.bool,
-                                               device="cuda"), n),
-                ("4097 rows 5 bytes off the grid",
-                 torch.rand((4102,), generator=gen, device="cuda")[5:]
-                 < 0.3, 5000)):
-            hold_compact(m, capacity, f"{route} replayed, {what}",
-                         got=replay_outputs(lambda: S._compact(
-                             m, capacity, route)))
-            replayed[f"{route}: {what}"] = "held"
+    for what, m, capacity in (
+            ("3.6 % into 262,144", mask[:n], 262_144),
+            ("all true into n", torch.ones((n,), dtype=torch.bool,
+                                           device="cuda"), n),
+            ("4097 rows 5 bytes off the grid",
+             torch.rand((4102,), generator=gen, device="cuda")[5:] < 0.3,
+             5000)):
+        hold_compact(m, capacity, f"replayed, {what}",
+                     got=replay_outputs(lambda: S.compact(m, capacity)))
+        replayed[what] = "held"
     # two graphs captured on the one capture stream, the first not replayed
     # before the second is captured and replayed, then both replayed on two
-    # streams at once: each answers its own mask (each captured launch has
-    # a state of its own); a capture with no state set aside is refused
+    # streams at once: each answers its own mask (each captured call has a
+    # state of its own)
     twins = [(torch.rand((n,), generator=gen, device="cuda") < d)
              for d in (0.036, 0.5)]
     for m in twins:
         S.compact(m, n)
     torch.cuda.synchronize()
-    S._SPARE.pop(torch.cuda.current_device(), None)
-    try:
-        with torch.cuda.graph(torch.cuda.CUDAGraph()):
-            S.compact(twins[0], n)
-    except RuntimeError as e:
-        if "reserve_graph_states" not in str(e):
-            raise
-    else:
-        raise AssertionError("a compaction was captured with no state set "
-                             "aside")
     graphs, twin_outs = [], []
     for m in twins:
-        S.reserve_graph_states(m.device, 3)
         graphs.append(torch.cuda.CUDAGraph())
         with torch.cuda.graph(graphs[-1]):
             twin_outs.append([S.compact(m, n) for _ in range(3)])
@@ -980,11 +949,11 @@ def phase_kernel_check_scatter(gen) -> dict:
                          got=got)
     replayed["two graphs captured apart, replayed at once"] = "held"
     del graphs, twin_outs, twins
-    if any(v != {1} for v in launches.values()):
+    if launches != {1}:
         raise AssertionError(f"compact counted {launches} launches a call; "
                              f"one is the design")
     say("kernel_check", kernel="compact", compactions=compactions,
-        launches_per_call={k: sorted(v) for k, v in launches.items()},
+        launches_per_call=sorted(launches),
         graph_replays=replayed, tolerance=0)
     say("kernel_check", kernel="scatter", cases=cases, max_abs_err=worst,
         compactions=compactions, tolerance=0)
@@ -1360,7 +1329,6 @@ class _Tap:
         self.name, self.modules = name, modules
         self.args, self.bytes = None, -1
         self.calls = {}  # kind of call -> (bytes, args, kwargs)
-        self.sizes = []  # bytes of tensor arguments, every call in order
 
     @staticmethod
     def _kind(x):
@@ -1383,7 +1351,6 @@ class _Tap:
 
         def tapped(*args, **kwargs):
             size = self._nbytes(args) + self._nbytes(list(kwargs.values()))
-            self.sizes.append(size)
             if size > self.bytes:
                 self.args, self.bytes = args, size
             kind = self._kind((args, sorted(kwargs.items())))
@@ -1744,7 +1711,6 @@ def phase_q15view_engine(catalog) -> dict:
         agrees_with=["numpy int64 exactly", "eager == compiled"])
     return {"launches": run["launches"], "ms_per_run": ms, "held": held,
             "profile": profile, "ms_trials": ms_trials,
-            "compact_rows": list(taps[2].sizes),
             "gather_args": taps[0].args, "compact_args": taps[2].args}
 
 
@@ -1817,9 +1783,7 @@ def _engine_phase(name: str, engine, sql: str, check, reps: int = 20,
     return {"run": run, "ms": sum(ms_trials) / 2, "ms_trials": ms_trials,
             "profile": _profile(run["cq"]), "held": held,
             "gather_args": taps[0].args, "scatter_args": taps[1].args,
-            "compact_args": taps[2].args, "take_args": taps[3].args,
-            # a bool mask's bytes are its rows
-            "compact_rows": list(taps[2].sizes)}
+            "compact_args": taps[2].args, "take_args": taps[3].args}
 
 
 def _numpy_q3(li, orders, cust, seg_code: int) -> list:
@@ -1898,7 +1862,7 @@ def phase_q3_engine(catalog) -> dict:
                      "eager == compiled"])
     return {"launches": run["launches"], "ms_per_run": out["ms"],
             "profile": out["profile"], "held": out["held"],
-            "ms_trials": out["ms_trials"], "compact_rows": out["compact_rows"],
+            "ms_trials": out["ms_trials"],
             "scatter_args": out["scatter_args"],
             "gather_args": out["gather_args"], "cq": run["cq"]}
 
@@ -2014,7 +1978,7 @@ def phase_q27_engine(catalog) -> dict:
                      "eager == compiled"])
     return {"launches": run["launches"], "ms_per_run": out["ms"],
             "profile": out["profile"], "held": out["held"],
-            "ms_trials": out["ms_trials"], "compact_rows": out["compact_rows"],
+            "ms_trials": out["ms_trials"],
             "union_args": tap.args, "gather_args": out["gather_args"]}
 
 
@@ -2103,7 +2067,7 @@ def phase_q93_engine(catalog) -> dict:
         agrees_with=["numpy int64 exactly (100 rows)", "eager == compiled"])
     return {"launches": run["launches"], "ms_per_run": out["ms"],
             "profile": out["profile"], "held": out["held"],
-            "ms_trials": out["ms_trials"], "compact_rows": out["compact_rows"],
+            "ms_trials": out["ms_trials"],
             "gather_args": out["gather_args"]}
 
 
@@ -2197,7 +2161,7 @@ def phase_q7_engine(catalog) -> dict:
         agrees_with=["numpy int64 exactly (4 rows)", "eager == compiled"])
     return {"launches": run["launches"], "ms_per_run": out["ms"],
             "profile": out["profile"], "held": out["held"],
-            "ms_trials": out["ms_trials"], "compact_rows": out["compact_rows"]}
+            "ms_trials": out["ms_trials"]}
 
 
 def _numpy_q98(catalog) -> tuple:
@@ -2335,7 +2299,7 @@ def phase_q98_engine(catalog) -> dict:
                      "relative)", "eager == compiled"])
     return {"launches": run["launches"], "ms_per_run": out["ms"],
             "profile": out["profile"], "held": out["held"],
-            "ms_trials": out["ms_trials"], "compact_rows": out["compact_rows"]}
+            "ms_trials": out["ms_trials"]}
 
 
 WINDOW_SQL = """select l_orderkey, l_linenumber, l_suppkey,
@@ -2432,7 +2396,7 @@ def phase_window_engine(catalog) -> dict:
                      "eager == compiled"])
     return {"launches": run["launches"], "ms_per_run": out["ms"],
             "profile": out["profile"], "held": out["held"],
-            "ms_trials": out["ms_trials"], "compact_rows": out["compact_rows"],
+            "ms_trials": out["ms_trials"],
             "take_args": out["take_args"]}
 
 
@@ -2978,8 +2942,7 @@ def phase_statements_engine(catalog) -> dict:
                         "launches_per_compiled_run": {
                             k: s["call"]
                             for k, s in run["launches_per_step"].items()},
-                        "held_against_plain": out["held"],
-                        "compact_rows": out["compact_rows"]}
+                        "held_against_plain": out["held"]}
         return out
 
     # S1: three DISTINCT aggregates and a count, grouped
@@ -4132,24 +4095,10 @@ def phase_roofline(catalog, compiled: dict, profiled: dict,
         statements=statements)
     return {"launches": launches, "rows": rows, "statements": statements}
 
-def _strided_take_along_axis(x, idx, axis: int):
-    """``take_along_axis`` as the earlier design made it, for the
-    same-run comparison: one launch of the strided body (an element a
-    thread, a 64-bit division by the width for each, at most 16 blocks an
-    SM).  Launches made here count in no launch counter."""
-    rows, width = idx.shape
-    out = x.new_empty((rows, width))
-    wx = x.shape[1]
-    _strided_launch([x], [out], idx, rows, width, x.shape[axis],
-                    (width, 1, wx, 0, 1) if axis == 0
-                    else (width, 1, 1, wx, 0))
-    return out
-
-
 def take_times(x, idx, axis: int, copy_rate: float, sector_lib=None) -> dict:
-    """``take_along_axis`` at one shape: the take body, the earlier strided
-    body (``_strided_take_along_axis``) and ``torch.gather`` on the index
-    clamped beforehand (the same function: the wrapper clamps), in turns.
+    """``take_along_axis`` at one shape: the take body and ``torch.gather``
+    on the index clamped beforehand (the same function: the wrapper
+    clamps), in turns.
     Bytes: the index once, each distinct source element it names once, the
     output once.  Beside them the 32-byte sectors of x the index names,
     and the card's random sector rate from a source of x's bytes
@@ -4174,7 +4123,6 @@ def take_times(x, idx, axis: int, copy_rate: float, sector_lib=None) -> dict:
         + distinct * x.element_size()
     turns = in_turns({
         "ms": lambda: G.take_along_axis(x, idx, axis),
-        "old_strided_ms": lambda: _strided_take_along_axis(x, idx, axis),
         "library_ms": lambda: torch.gather(x, axis, clamped)})
     rows = kernel_rows_ms(lambda: G.take_along_axis(x, idx, axis))
     plan = G.plan_take(
@@ -4189,7 +4137,7 @@ def take_times(x, idx, axis: int, copy_rate: float, sector_lib=None) -> dict:
            "idx": f"{idx.dtype}{list(idx.shape)}", "axis": axis,
            "plan": plan._asdict(), "distinct_elements_read": distinct,
            "sectors_of_x_named": sectors, **turns,
-           "timed": "ms, old_strided_ms and library_ms in turns (in_turns)",
+           "timed": "ms and library_ms in turns (in_turns)",
            "kernel_rows_ms": rows["ms"], "kernels": rows["kernels"],
            "plain_ms": device_ms(lambda: G.take_along_axis_plain(x, idx,
                                                                  axis)),
@@ -4303,71 +4251,6 @@ def dense_times(word, groups, columns, slots, copy_rate: float,
                    library_enqueued_ms=time_ms(library))
     out["bytes_per_s"] = nbytes / (out["ms"] * 1e-3)
     return out
-
-
-def _strided_launch(srcs, dsts, idx, rows: int, width: int, n: int,
-                    strides) -> None:
-    """One launch of the strided body (``p1_gather_strided``), the earlier
-    design's gather: up to 32 (source, destination) pairs of one element
-    width through ``idx``, ``rows * width`` elements, strides as in
-    ``csrc/gather.cu``; a grid of an element a thread, at most 16 blocks an
-    SM, entered inside ``torch.cuda.device``."""
-    import ctypes
-
-    from presto1_tpu_torch.ops.kernels import _build, gather as G
-
-    lib = G._library()
-    dev = idx.device
-    blocks = max(1, min(-(-(rows * width) // G.THREADS),
-                        _build.sm_count(dev) * 16))
-    ptrs = ctypes.c_void_p * len(srcs)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.p1_gather_strided(
-            ptrs(*[t.data_ptr() for t in srcs]),
-            ptrs(*[t.data_ptr() for t in dsts]), len(srcs),
-            srcs[0].element_size(), idx.data_ptr(), idx.element_size(),
-            rows, width, n, (ctypes.c_int64 * 5)(*strides), blocks, stream)
-    if err != 0:
-        raise RuntimeError(f"strided gather launch failed: error {err}")
-
-
-def _strided_gather_rows(sources, idx):
-    """``gather_rows`` as the earlier design made it, for the same-run
-    comparison: the same argument checks, outputs allocated one by one,
-    then one launch of the strided body per element width of the 1-D
-    columns (32 columns a launch) and one per ``[n, W]`` matrix.  Launches
-    made here count in no launch counter."""
-    from presto1_tpu_torch.ops.kernels import gather as G
-
-    sources = list(sources)
-    G._check_idx(idx, 1)
-    for k, s in enumerate(sources):
-        if not isinstance(s, torch.Tensor) or s.device != idx.device \
-                or s.dim() not in (1, 2) \
-                or s.shape[0] != sources[0].shape[0] \
-                or s.element_size() not in (1, 2, 4, 8) \
-                or not s.is_contiguous():
-            raise ValueError(f"sources[{k}]")
-    m, n = idx.shape[0], sources[0].shape[0]
-    idx = idx.contiguous()
-    outs = [torch.empty((m,) + tuple(s.shape[1:]), dtype=s.dtype,
-                        device=s.device) for s in sources]
-    by_width: dict = {}
-    for k, s in enumerate(sources):
-        if s.dim() == 1:
-            by_width.setdefault(s.element_size(), []).append(k)
-    for ks in by_width.values():
-        for at in range(0, len(ks), G.MAX_PAIRS):
-            part = ks[at:at + G.MAX_PAIRS]
-            _strided_launch([sources[k] for k in part],
-                            [outs[k] for k in part], idx, m, 1, n,
-                            (1, 0, 1, 0, 0))
-    for k, s in enumerate(sources):
-        if s.dim() == 2 and s.shape[1] > 0:
-            w = s.shape[1]
-            _strided_launch([s], [outs[k]], idx, m, w, n, (1, 0, w, 0, 1))
-    return outs
 
 
 # Random 32-byte sector reads and nothing else: no index stream, no output,
@@ -4569,10 +4452,8 @@ def gather_times(sources, idx, copy_rate: float, sector_lib=None) -> dict:
     """``gather_rows`` at one shape.  Bytes: the index once, each distinct
     source row it names read once (what this index needs: a repeated row
     comes from the caches), one output row written per index.  The
-    kernel beside the earlier design's body and launch pattern
-    (``_strided_gather_rows``) and ``index_select``, in turns by graph
-    replay; the host's cost of a call (``call_ms``) beside the earlier
-    pattern's; and the random-sector yardstick: one sector a word of a
+    kernel beside ``index_select``, in turns by graph replay; the host's
+    cost of a call (``call_ms``); and the random-sector yardstick: one sector a word of a
     distinct row, at the card's rate (``sector_rate``, 8 loads in flight)
     from a source of the bytes one column group of the plan reads (all the
     sources in one pass).  The yardstick is meant for a random index: a
@@ -4596,18 +4477,14 @@ def gather_times(sources, idx, copy_rate: float, sector_lib=None) -> dict:
         return [s.index_select(0, long_idx) for s in sources]
 
     turns = in_turns({"ms": lambda: G.gather_rows(sources, idx),
-                      "strided_ms": lambda: _strided_gather_rows(sources,
-                                                                 idx),
                       "library_ms": library})
     out = {"rows_out": m, "rows_in": n, "distinct_rows_read": distinct,
            "sources": [f"{s.dtype}{list(s.shape[1:])}" for s in sources],
            "index": str(idx.dtype), "units": len(units),
            "plan": plan._asdict(), **turns,
-           "timed": "ms, strided_ms and library_ms in turns (in_turns)",
+           "timed": "ms and library_ms in turns (in_turns)",
            "plain_ms": device_ms(lambda: G.gather_rows_plain(sources, idx)),
            "call_ms": time_ms(lambda: G.gather_rows(sources, idx)),
-           "strided_call_ms": time_ms(lambda: _strided_gather_rows(sources,
-                                                                   idx)),
            **_bounds(nbytes, m * len(sources), copy_rate),
            "library_call": "torch.index_select, once per source, on "
                            "indices already in range"}
@@ -4629,8 +4506,7 @@ def gather_times(sources, idx, copy_rate: float, sector_lib=None) -> dict:
 def gather_small_call(gen) -> dict:
     """The host's cost of a small ``gather_rows`` call, as fill Q27: 1,000
     rows of 3 columns in 2 widths (int64, int64, int32), a random int64
-    index; ``call_ms`` of the wrapper beside the earlier pattern's
-    (``_strided_gather_rows``), and the device time of each."""
+    index; ``call_ms`` of the wrapper, and its device time."""
     from presto1_tpu_torch.ops.kernels import gather as G
 
     n = 1000
@@ -4639,9 +4515,7 @@ def gather_small_call(gen) -> dict:
     idx = torch.randint(0, n, (n,), generator=gen, device="cuda")
     return {"rows": n, "sources": ["int64", "int64", "int32"],
             "call_ms": time_ms(lambda: G.gather_rows(srcs, idx)),
-            "strided_call_ms": time_ms(lambda: _strided_gather_rows(srcs, idx)),
-            "ms": device_ms(lambda: G.gather_rows(srcs, idx)),
-            "strided_ms": device_ms(lambda: _strided_gather_rows(srcs, idx))}
+            "ms": device_ms(lambda: G.gather_rows(srcs, idx))}
 
 
 def scatter_times(idx, x, size, mask, copy_rate: float) -> dict:
@@ -4701,16 +4575,12 @@ def scatter_times(idx, x, size, mask, copy_rate: float) -> dict:
 
 def compact_times(mask, capacity: int, copy_rate: float) -> dict:
     """``compact`` at one shape.  Bytes the function needs: the mask once,
-    ``capacity`` indices and the count written once.  Both bodies -- the
-    one-launch look-back and the earlier two-pass body -- by graph replay
-    in turns, ``ms`` the look-back (the route ``compact`` takes);
-    the planned call's kernel rows (one kernel a call is the design) and
-    the two-pass body's rows beside the bytes each of its passes needs
-    (the count pass: the mask and the chunk counts; the write pass: the
-    mask, the chunk counts, the indices and the count); the device time of
-    a one-element fill, the least a launch in a graph costs; and
+    ``capacity`` indices and the count written once.  ``ms`` by graph
+    replay (the zero-fill of the call's state included), the call's
+    kernel rows (the fill and the look-back are the design); the device
+    time of a one-element fill, the least a launch in a graph costs; and
     ``torch.nonzero`` (the same indices without the padding, sized on the
-    host) by its kernel rows, measured right after the turns."""
+    host) by its kernel rows."""
     from presto1_tpu_torch.ops.kernels import _build, scatter as S
 
     n = mask.shape[0]
@@ -4720,28 +4590,14 @@ def compact_times(mask, capacity: int, copy_rate: float) -> dict:
     plan = S.compact_route(n, mask.data_ptr() % 16,
                            _build.sm_count(mask.device),
                            lambda: S._OCCUPANCY[mask.device.index])
-    turns = in_turns({f"{r}_ms": (lambda r=r: S._compact(mask, capacity, r))
-                      for r in COMPACT_ROUTES})
+    ms = device_ms(lambda: S.compact(mask, capacity))
     library = kernel_rows_ms(lambda: torch.nonzero(mask))
     rows = kernel_rows_ms(lambda: S.compact(mask, capacity))
-    two = kernel_rows_ms(lambda: S._compact(mask, capacity, "two_pass"))
-    blocks, _ = S.compact_plan(n, mask.data_ptr() % 16,
-                               _build.sm_count(mask.device))
-    pass_bytes = {"compact_count": n + 8 * blocks,
-                  "compact_write": n + 8 * blocks + capacity * 8 + 8}
-    passes = {name: {"ms": ms, "bytes": pass_bytes[key],
-                     "bound_ms": pass_bytes[key] / H100_BYTES_PER_S * 1e3}
-              for name, ms, _ in two["rows"]
-              for key in pass_bytes if key in name}
     one = torch.empty((1,), dtype=torch.int64, device="cuda")
     out = {"rows": n, "capacity": capacity, "kept": kept,
-           "plan": plan._asdict(),
-           "ms": turns[f"{plan.route}_ms"],
-           **turns, "timed": "every body in turns (in_turns)",
+           "plan": plan._asdict(), "ms": ms,
            "kernel_rows_ms": rows["ms"], "kernels": rows["kernels"],
            "kernel_rows": rows["rows"],
-           "two_pass_kernel_rows_ms": two["ms"],
-           "two_pass_kernels": two["kernels"], "two_pass_passes": passes,
            "one_element_fill_ms": device_ms(lambda: one.zero_()),
            "plain_ms": device_ms(lambda: S.compact_plain(mask, capacity)),
            **_call_ms(lambda: S.compact(mask, capacity)),
@@ -4751,49 +4607,6 @@ def compact_times(mask, capacity: int, copy_rate: float) -> dict:
                            "its kernel rows only)"}
     out["share_of_bound"] = out["bound_ms"] / out["ms"]
     out["bytes_per_s"] = nbytes / (out["ms"] * 1e-3)
-    return out
-
-
-def compact_calls_by_rows(calls: dict, device_ms_per_run: dict,
-                          trials: dict, gen) -> dict:
-    """The compaction calls each statement made in its tapped run, by mask
-    rows, split at 2^20; and what the two-pass body would save on the
-    calls below 2^20 rows if ``compact`` took it there.  At every distinct
-    row count below 2^20 both bodies are timed in turns on masks of 3.6 %
-    and 50 % (capacity the count plus 288); a call is given the larger of
-    the two savings (look-back minus two-pass; negative where the
-    look-back is faster).  Each statement's summed saving stands beside
-    its device ms a run and the gap between its two timed trials (the
-    end-to-end metric's own spread in this run)."""
-    from presto1_tpu_torch.ops.kernels import scatter as S
-
-    split = 1 << 20
-    small = sorted({r for rows in calls.values() for r in rows
-                    if 0 < r < split})
-    saving = {}
-    for n in small:
-        worst = None
-        for density in (0.036, 0.5):
-            m = torch.rand((n,), generator=gen, device="cuda") < density
-            capacity = int(m.sum()) + 288
-            t = in_turns({r: (lambda r=r: S._compact(m, capacity, r))
-                          for r in COMPACT_ROUTES})
-            d = t["lookback"] - t["two_pass"]
-            worst = d if worst is None else max(worst, d)
-        saving[n] = worst
-    out = {"split_rows": split, "by_statement": {}}
-    for key, rows in calls.items():
-        below = [r for r in rows if 0 < r < split]
-        saved = sum(saving[r] for r in below)
-        spread = trials.get(key)
-        out["by_statement"][key] = {
-            "calls": len(rows), "below_split": len(below),
-            "at_or_above_split": sum(r >= split for r in rows),
-            "rows_below_split": sorted(below),
-            "two_pass_saves_ms": saved,
-            "device_ms_per_run": device_ms_per_run.get(key),
-            "trial_spread_ms": spread}
-    out["lookback_minus_two_pass_ms_by_rows"] = saving
     return out
 
 
@@ -4994,16 +4807,6 @@ def main() -> int:
     compact_half = compact_times(half, n, copy_rate)
     compact_all = compact_times(torch.ones_like(half), n, copy_rate)
     del half
-    # each statement's compaction calls by rows, and what the two-pass body
-    # would save on those below 2^20 rows
-    keyed = {"q15_view": q15, "q3": q3, "q27": q27, "q93": q93, "q7": q7,
-             "q98": q98, "window": win, **stm["results"]}
-    by_rows = compact_calls_by_rows(
-        {k: p["compact_rows"] for k, p in keyed.items()},
-        {k: p["profile"].get("device_ms_per_run") for k, p in keyed.items()},
-        {k: abs(p["ms_trials"][0] - p["ms_trials"][1])
-         for k, p in keyed.items()}, gen)
-    say("compaction_calls_by_rows", **by_rows)
     # the Q27 Union's parts as the engine handed them over, against the
     # plain version too, then timed; and the fact-table UNION ALL
     union_cols, union_counts, union_cap = q27["union_args"]
@@ -5074,12 +4877,12 @@ def main() -> int:
               compact_q15, source="scatter",
               shape="the Q15 view's largest compaction at SF1: the group "
                     "boundaries among 6,002,010 sorted rows",
-              launches_counted="calls of compact (one kernel each)",
+              launches_counted="calls of compact (a zero-fill and one "
+                               "kernel each)",
               at_engine_shape=compact_q15,
               at_view_density_mask_into_262144=compact_mask,
               at_half_of_6002010_into_n=compact_half,
-              at_all_of_6002010_into_n=compact_all,
-              calls_by_rows=by_rows),
+              at_all_of_6002010_into_n=compact_all),
         entry("gather",
               "experiments/pallas_primitives.py:54, "
               "experiments/pallas_primitives.py:78, "
@@ -5144,7 +4947,6 @@ def main() -> int:
         q1_dense_kernel_ms=dense_q1["ms"],
         q15view_largest_gather_ms=gather_q15["ms"],
         largest_gather_ms={k: {"ms": g["ms"],
-                               "strided_ms": g["strided_ms"],
                                "index_select_ms": g["library_ms"],
                                "bound_ms": g["bound_ms"]}
                            for k, g in (("q15_view", gather_q15),
@@ -5199,14 +5001,13 @@ def main() -> int:
         discovery_s={k: r["discovery_s"] for k, r in sampled.items()},
         q15view_largest_compaction_ms=compact_q15["ms"],
         compaction_ms={k: {f: c[f] for f in (
-            "ms", "lookback_ms", "two_pass_ms", "library_ms", "bound_ms",
-            "kernels")}
+            "ms", "library_ms", "bound_ms", "kernels")}
                        for k, c in (("view", compact_q15),
                                     ("mask_3.6%_262144", compact_mask),
                                     ("half_into_n", compact_half),
                                     ("all_into_n", compact_all))},
-        take_along_axis_ms={k: {f: t[f] for f in ("ms", "old_strided_ms",
-                                                  "library_ms", "bound_ms")}
+        take_along_axis_ms={k: {f: t[f] for f in ("ms", "library_ms",
+                                                  "bound_ms")}
                             for k, t in (("window", take_window),
                                          ("element_at", take_element_at))},
         q3_largest_scatter_ms=scatter_q3["ms"],

@@ -1,8 +1,8 @@
 """A compiled statement's fragments captured as one CUDA graph.
 
-``StatementGraph.capture(run, device, compactions)`` records every kernel
-that ``run()`` enqueues (a ``CompiledQuery``'s fragments, in stage order,
-and the flags of its readback) into one ``torch.cuda.CUDAGraph``;
+``StatementGraph.capture(run, device)`` records every kernel that
+``run()`` enqueues (a ``CompiledQuery``'s fragments, in stage order, and
+the flags of its readback) into one ``torch.cuda.CUDAGraph``;
 ``replay()`` launches the whole statement with one call and no Python per
 kernel.  The graph reads the tensors that were on the device at capture
 (the statement's scan inputs, the tables its record keeps) and writes into
@@ -31,9 +31,8 @@ import torch
 
 # bytes each packed array starts on: the widest element's alignment
 _ALIGN = 16
-# one capture at a time in a process: the look-back states a capture sets
-# aside are the ones it takes (``scatter._SPARE`` is shared by the device),
-# and a device's captures share its pool and its capture stream
+# one capture at a time in a process: a device's captures share its pool
+# and its capture stream
 _CAPTURE_LOCK = threading.Lock()
 
 
@@ -105,19 +104,11 @@ class StatementGraph:
 
     @classmethod
     def capture(cls, run: Callable[[], Tuple[dict, dict, object]],
-                device: torch.device, compactions: int) -> "StatementGraph":
+                device: torch.device) -> "StatementGraph":
         """Capture ``run()``, which returns ``(data, validity, pair)`` as
-        ``CompiledQuery._execute`` does, into the device's pool, after
-        setting aside a zeroed look-back state for each of the
-        ``compactions`` compactions that the eager warm-up launched
-        (``scatter.reserve_graph_states``), as large as the largest that
-        the warm-up needed."""
-        from ..ops.kernels import scatter
-
+        ``CompiledQuery._execute`` does, into the device's pool."""
         with _CAPTURE_LOCK:
             shared = _device_graphs(device)
-            scatter.reserve_graph_states(
-                device, compactions, scatter.eager_state_tiles(device))
             graph = torch.cuda.CUDAGraph()
             main = torch.cuda.current_stream(device)
             shared.stream.wait_stream(main)

@@ -72,7 +72,6 @@ from ..ops.hashagg import _guard_limb_total
 from ..ops.join import cross_join, hash_join, merge_join_applicable
 from ..ops.kernels.dyncopy import concat_rows
 from ..ops.kernels.gather import gather_rows
-from ..ops.kernels import scatter
 from ..ops.kernels.scatter import scatter_distinct
 from ..ops.segments import compact_indices
 from ..ops.sort import SortKey, limit_batch, sort_batch
@@ -1545,7 +1544,6 @@ class CompiledQuery:
     device; fragments chain on-device (counts and ``ok`` flags stay device
     tensors, no host syncs inside or between them), and the one readback
     happens at the end of ``__call__`` / ``block_run``.
-    granularity='single' runs the whole pipeline as one fragment.
 
     On a CUDA device a statement's second call captures every fragment
     into one CUDA graph (``exec/cuda_graph.py``), and later calls replay
@@ -1555,7 +1553,6 @@ class CompiledQuery:
     """
 
     def __init__(self, catalog, plan: LogicalNode,
-                 granularity: str = "fragment",
                  stubs: Optional[Dict[Path, RecordBatch]] = None,
                  sample: Optional[Dict[str, int]] = None,
                  sample_margin: Optional[float] = None,
@@ -1587,8 +1584,7 @@ class CompiledQuery:
         # and for fragments whose external inputs change from run to run
         self.guard_ranges = bool(self.sample) or bool(self.external)
 
-        roots = sorted(set(_fragment_roots(plan)), key=len, reverse=True) \
-            if granularity == "fragment" else [()]
+        roots = sorted(set(_fragment_roots(plan)), key=len, reverse=True)
         # external stub paths are extra fragment boundaries: they never
         # run, their data arrives with each call
         roots = [r for r in roots
@@ -1672,7 +1668,7 @@ class CompiledQuery:
         self._graph_never: Optional[str] = None
         self._graph: Optional[StatementGraph] = None
         self._graph_lock = threading.Lock()
-        self._warm_compactions: Optional[int] = None
+        self._warmed = False
         # what one replay executes, counted at capture: operator
         # executions and the reruns among them (``trace.operator_counts``)
         self.operators: Optional[Dict[str, int]] = None
@@ -1888,22 +1884,20 @@ class CompiledQuery:
         the statement's CUDA graph where a graph can serve this call, else
         the fragments run eagerly and ``graph_reason`` says why.
 
-        The first call that could replay runs eagerly (it loads the
-        kernels and counts its compactions); the next one captures every
-        fragment, in stage order, into one graph and replays it.  A call
-        replays only on a CUDA device, without external inputs, with the
-        scan inputs the statement was compiled with, and while no other
-        thread replays the same graph."""
+        The first call that could replay runs eagerly (the kernels load,
+        and the libraries make their first-call set-up, outside a capture);
+        the next one captures every fragment, in stage order, into one
+        graph and replays it.  A call replays only on a CUDA device,
+        without external inputs, with the scan inputs the statement was
+        compiled with, and while no other thread replays the same graph."""
         why = self._graph_blocker()
         if why is None and not self._graph_lock.acquire(blocking=False):
             why = "another thread is replaying this statement's graph"
         if why is None:
             try:
-                if self._warm_compactions is None:
-                    before = scatter.COMPACT_LAUNCHES
+                if not self._warmed:
                     out = self._eager(stubs)
-                    self._warm_compactions = \
-                        scatter.COMPACT_LAUNCHES - before
+                    self._warmed = True
                     self._eager_because(
                         "warm-up: the first call runs eagerly, the next one "
                         "captures the statement's CUDA graph")
@@ -1953,8 +1947,7 @@ class CompiledQuery:
             try:
                 with host_tables_read() as tables:
                     graph = StatementGraph.capture(
-                        lambda: self._eager(None), self.device,
-                        self._warm_compactions)
+                        lambda: self._eager(None), self.device)
             except Exception as e:  # the statement still runs, eagerly
                 _LOG.warning("CUDA graph capture failed; the statement "
                              "runs eagerly", exc_info=True)

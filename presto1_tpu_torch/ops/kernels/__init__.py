@@ -9,8 +9,8 @@ a worker process launched can be read from another process).
 import importlib
 
 # family -> (wrapper module, counter attribute); ``compact`` counts calls of
-# the compaction (two kernels each), ``take_along_axis`` the strided
-# gather's calls, ``gather`` the row gather's launches
+# the compaction (a zero-fill of its state and one kernel each),
+# ``take_along_axis`` the take body's launches, ``gather`` the row body's
 COUNTERS = {"filter_sum": ("filter_sum", "LAUNCHES"),
             "dense_group_agg": ("dense_group_agg", "LAUNCHES"),
             "gather": ("gather", "LAUNCHES"),

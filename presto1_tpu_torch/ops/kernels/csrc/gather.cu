@@ -8,7 +8,7 @@
 // move of the engine: rows after a sort, representatives of groups, the
 // survivors of a compaction.
 //
-// Three bodies.
+// Two bodies.
 //
 // `gather_rows_kernel` moves every column of a call through one index in
 // ONE launch, whatever the element widths.  The wrapper describes each
@@ -63,7 +63,7 @@
 // element_at reads its own row, so every sector of x moves; the window's
 // ends name 1.5M sectors spread over a table 23 times the L2, so there the
 // card's random sector rate limits it.  The body of the earlier design
-// (`gather_strided_kernel` below) took ONE element a thread a grid-stride
+// (a strided gather, since deleted) took ONE element a thread a grid-stride
 // step, so its index load and the dependent source load were the only
 // loads it had in flight; it divided the element number by the width in 64
 // bits (an emulated division) on every element although the width was 1;
@@ -84,21 +84,6 @@
 // a grid of the occupancy the kernel reaches (cudaOccupancy...), every SM
 // full, grid-stride beyond.
 //
-// `gather_strided_kernel` is the strided body of the earlier design, no
-// longer reached by the engine: chip_smoke.py times it beside the two
-// bodies above (the earlier gather_rows launch pattern and
-// take_along_axis):
-//
-//   g      = clamp(idx[i * irs + j * ics], 0, n - 1)
-//   out[e] = src[g * sgs + i * sis + j * sjs]        e = i * width + j
-//
-//   take_along_axis, axis 0:      irs W, ics 1, sgs W_src, sis 0,  sjs 1
-//   take_along_axis, axis 1:      irs W, ics 1, sgs 1,     sis W_src, sjs 0
-//
-// (columns: irs 1, ics 0, sgs 1, sis 0, sjs 0; rows of [n, W]: irs 1, ics 0,
-// sgs W, sis 0, sjs 1), a table of up to 32 (source, destination) pairs of
-// one element width sharing the index.
-//
 // Plain C interface for ctypes; launches on the caller's stream, does not
 // synchronise, allocates nothing.
 
@@ -111,7 +96,6 @@ constexpr int kThreads = 256;
 constexpr int kMaxUnits = 64;  // units one launch of the row body takes
 constexpr int kLoads = 16;     // source words a thread keeps in flight
 constexpr int kRows = 4;       // output rows a thread takes (R)
-constexpr int kMaxPairs = 32;  // pairs of one launch of the strided body
 constexpr int kTakeLoads = 8;  // elements a thread of take_along_axis takes
 
 // ------------------------------------------------------------ the row body
@@ -527,83 +511,21 @@ int take_dispatch(const TakeParams* p, int lt, int idx_w, int wide, int axis,
   }
 }
 
-// -------------------------------------------------------- the strided body
-
-struct Table {
-  const void* src[kMaxPairs];
-  void* dst[kMaxPairs];
-  int count;
-};
-
-struct Strides {
-  int64_t irs, ics, sgs, sis, sjs;
-};
-
-template <typename T, typename I, bool kFlat>
-__global__ void __launch_bounds__(kThreads)
-gather_strided_kernel(const Table tab, const I* __restrict__ idx,
-                      int64_t rows, int64_t width, int64_t n,
-                      const Strides st) {
-  const int64_t total = rows * width;
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
-  for (int64_t e = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-       e < total; e += stride) {
-    int64_t i = e, j = 0;
-    if (!kFlat) {
-      i = e / width;
-      j = e - i * width;
-    }
-    int64_t g = static_cast<int64_t>(idx[i * st.irs + j * st.ics]);
-    g = g < 0 ? 0 : (g > n - 1 ? n - 1 : g);
-    const int64_t off = g * st.sgs + i * st.sis + j * st.sjs;
-    for (int c = 0; c < tab.count; ++c)
-      static_cast<T*>(tab.dst[c])[e] = static_cast<const T*>(tab.src[c])[off];
-  }
-}
-
-template <typename T, typename I>
-int launch_strided(const Table& tab, const void* idx, int64_t rows,
-                   int64_t width, int64_t n, const Strides& st, int blocks,
-                   cudaStream_t stream) {
-  const I* ix = static_cast<const I*>(idx);
-  if (width == 1 && st.ics == 0 && st.sjs == 0 && st.sis == 0)
-    gather_strided_kernel<T, I, true><<<blocks, kThreads, 0, stream>>>(
-        tab, ix, rows, width, n, st);
-  else
-    gather_strided_kernel<T, I, false><<<blocks, kThreads, 0, stream>>>(
-        tab, ix, rows, width, n, st);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <typename T>
-int launch_strided_idx(const Table& tab, const void* idx, int idx_w,
-                       int64_t rows, int64_t width, int64_t n,
-                       const Strides& st, int blocks, cudaStream_t stream) {
-  if (idx_w == 4)
-    return launch_strided<T, int32_t>(tab, idx, rows, width, n, st, blocks,
-                                      stream);
-  if (idx_w == 8)
-    return launch_strided<T, int64_t>(tab, idx, rows, width, n, st, blocks,
-                                      stream);
-  return -1;
-}
-
 }  // namespace
 
 // The layout and geometry this library was built with, for the wrapper to
 // check against its ctypes mirror before any launch: {kThreads, kMaxUnits,
-// kLoads, kMaxPairs, sizeof(Unit), sizeof(Params), kRows, kTakeLoads,
+// kLoads, sizeof(Unit), sizeof(Params), kRows, kTakeLoads,
 // sizeof(TakeParams)}.
 extern "C" void p1_gather_geometry(int64_t* out) {
   out[0] = kThreads;
   out[1] = kMaxUnits;
   out[2] = kLoads;
-  out[3] = kMaxPairs;
-  out[4] = sizeof(Unit);
-  out[5] = sizeof(Params);
-  out[6] = kRows;
-  out[7] = kTakeLoads;
-  out[8] = sizeof(TakeParams);
+  out[3] = sizeof(Unit);
+  out[4] = sizeof(Params);
+  out[5] = kRows;
+  out[6] = kTakeLoads;
+  out[7] = sizeof(TakeParams);
 }
 
 // take_along_axis: `params` a TakeParams, `lt` log2 of x's element bytes
@@ -655,43 +577,4 @@ extern "C" int p1_gather_rows(const void* params, int idx_w, int wide,
   if (idx_w == 8)
     return launch_rows<int64_t>(*p, wide != 0, grid, s);
   return -1;
-}
-
-// The strided body: srcs / dsts `count` device pointers each (host arrays),
-// elements of elem_w bytes (1, 2, 4 or 8).  idx: int32 (idx_w 4) or int64
-// (idx_w 8).  Every destination holds rows * width elements; n >= 1 is the
-// length of the gathered axis.  strides: {irs, ics, sgs, sis, sjs} as above,
-// in elements.
-extern "C" int p1_gather_strided(const void* const* srcs, void* const* dsts,
-                                 int count, int elem_w, const void* idx,
-                                 int idx_w, int64_t rows, int64_t width,
-                                 int64_t n, const int64_t* strides,
-                                 int blocks, void* stream) {
-  if (count < 1 || count > kMaxPairs) return -2;
-  if (n < 1 || rows < 1 || width < 1 || blocks < 1) return -3;
-  Table tab = {};
-  tab.count = count;
-  for (int c = 0; c < count; ++c) {
-    tab.src[c] = srcs[c];
-    tab.dst[c] = dsts[c];
-  }
-  const Strides st = {strides[0], strides[1], strides[2], strides[3],
-                      strides[4]};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (elem_w) {
-    case 1:
-      return launch_strided_idx<uint8_t>(tab, idx, idx_w, rows, width, n, st,
-                                         blocks, s);
-    case 2:
-      return launch_strided_idx<uint16_t>(tab, idx, idx_w, rows, width, n, st,
-                                          blocks, s);
-    case 4:
-      return launch_strided_idx<uint32_t>(tab, idx, idx_w, rows, width, n, st,
-                                          blocks, s);
-    case 8:
-      return launch_strided_idx<uint64_t>(tab, idx, idx_w, rows, width, n, st,
-                                          blocks, s);
-    default:
-      return -1;
-  }
 }

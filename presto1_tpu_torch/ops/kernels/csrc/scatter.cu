@@ -13,7 +13,7 @@
 // Targets are distinct by contract, so no two threads write one address and
 // the result does not depend on the order; out-of-range targets are dropped.
 //
-// p1_compact: out[r] = the r-th true row of the mask for r < min(count,
+// p1_compact_one: out[r] = the r-th true row of the mask for r < min(count,
 // capacity), out[r] = 0 for count <= r < capacity, *count_out = count.
 //
 // Bound: memory.  The scatter needs the mask once, idx and x only at kept
@@ -34,26 +34,22 @@
 // * compaction: presto1_tpu/ops/segments.py `compact_indices` (a sort on
 //   the TPU, jnp.nonzero elsewhere; the Pallas masked compaction that
 //   presto1_tpu/ops/filter.py:13 foresees was never written), here ONE
-//   launch a call (p1_compact_one; below).  What bounds a sparse one on
+//   launch a call (compact_lookback, below).  What bounds a sparse one on
 //   this card is not the 6 MB read of a 6M-row mask but latency: the
 //   launch floor (a one-element fill in a graph: 0.0014-0.0017 ms) and the
-//   global order every rank depends on.  The earlier body (p1_compact)
-//   paid that order with two dependent launches: a count pass
-//   (0.0033-0.0037 ms against its 0.0018 ms bound), a 0.0021 ms gap, and a
-//   write pass that read the mask again and ranked it by a block scan with
-//   one barrier a tile (0.0064 ms), 0.0105-0.0118 ms a call at the view's
-//   boundaries and the 3.6 % mask, 17-21 % of the bound (chip_smoke.py,
-//   NVIDIA H100 80GB HBM3, 700 W, before the one-launch body); its lanes
-//   also stored their kept rows one scattered word at a time, so a dense
-//   mask took 0.07-0.17 ms.  The one-launch body (compact_lookback) keeps a
-//   lane's mask words in registers from the load to the writes (the mask
-//   is read once), ranks by warp scans and one barrier a tile, stages a
-//   warp step's kept rows in shared memory and stores them coalesced, and
-//   resolves the global order inside the launch by a decoupled look-back
-//   over tile flags.  It keeps its state between launches in a buffer the
-//   wrapper zeroes outside any CUDA graph capture, and leaves it zero, so
-//   that a graph may replay it.  The two-pass body stays only as the
-//   yardstick chip_smoke.py times the look-back against.
+//   global order every rank depends on.  An earlier body paid that order
+//   with two dependent launches, a count pass and a write pass that read
+//   the mask again (0.0105-0.0118 ms a call at the view's boundaries and
+//   the 3.6 % mask, and 0.07-0.17 ms on a dense mask, whose kept rows it
+//   stored one scattered word at a time; NVIDIA H100 80GB HBM3, 700 W).
+//   compact_lookback keeps a lane's mask words in registers from the load
+//   to the writes (the mask is read once), ranks by warp scans and one
+//   barrier a tile, stages a warp step's kept rows in shared memory and
+//   stores them coalesced, and resolves the global order inside the launch
+//   by a decoupled look-back over tile flags.  Its state (a ticket, the
+//   count and the flags) is the call's own: the wrapper allocates it zeroed
+//   for every call, so nothing is reset at the end and a CUDA graph
+//   replays the zero-fill with the launch.
 //
 // Plain C interface for ctypes; launches on the caller's stream, does not
 // synchronise, allocates nothing.
@@ -67,7 +63,6 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kLaneRows = 16;                 // mask bytes a lane loads
 constexpr int kWarpRows = 32 * kLaneRows;     // rows a warp step covers
-constexpr int kTileRows = kThreads * kLaneRows;
 constexpr int kMaxCols = 8;
 constexpr int kKeep = 4;                      // kept rows a lane has in flight
 constexpr unsigned kFull = 0xFFFFFFFFu;
@@ -81,9 +76,8 @@ constexpr int kLookWindows = 4;
 // chip_smoke.py compact_times; PERF_APPENDIX.md)
 constexpr int kSpanWords = 4;
 // the one-launch compaction's state, int64 words ahead of the tile flags:
-// [0] the tile counter, [1] the blocks that have left, [2] the count (a
-// flag)
-constexpr int kStateWords = 3;
+// [0] the tile counter, [1] the count (a flag)
+constexpr int kStateWords = 2;
 
 struct Cols {
   const void* x[kMaxCols];
@@ -203,136 +197,6 @@ scatter_kernel(const I* __restrict__ idx, const uint4* __restrict__ mask,
 }
 
 // ---------------------------------------------------------------- compaction
-
-// block-wide sum of one value a thread (every thread gets it)
-__device__ __forceinline__ int64_t block_sum(int64_t v, int64_t* red) {
-#pragma unroll
-  for (int d = 16; d > 0; d >>= 1) v += __shfl_down_sync(kFull, v, d);
-  __syncthreads();  // red may still be read by a previous call
-  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
-  __syncthreads();
-  int64_t s = 0;
-#pragma unroll
-  for (int w = 0; w < kWarps; ++w) s += red[w];
-  return s;
-}
-
-// pass 1: counts[b] = true rows in block b's chunk of words
-__global__ void __launch_bounds__(kThreads)
-compact_count(const uint4* __restrict__ mask, int64_t head, int64_t n,
-              int64_t chunk_words, int64_t* __restrict__ counts) {
-  __shared__ int64_t red[kWarps];
-  const int64_t end = head + n;
-  const int64_t words = (end + kLaneRows - 1) / kLaneRows;
-  const int64_t w0 = static_cast<int64_t>(blockIdx.x) * chunk_words;
-  int64_t w1 = w0 + chunk_words;
-  if (w1 > words) w1 = words;
-  int64_t c = 0;
-  for (int64_t w = w0 + threadIdx.x; w < w1; w += 4 * kThreads) {
-    unsigned bits[4];  // four loads in flight
-#pragma unroll
-    for (int u = 0; u < 4; ++u)
-      bits[u] = w + u * kThreads < w1
-                    ? kept_bits(mask, w + u * kThreads, head, end)
-                    : 0u;
-#pragma unroll
-    for (int u = 0; u < 4; ++u) c += __popc(bits[u]);
-  }
-  c = block_sum(c, red);
-  if (threadIdx.x == 0) counts[blockIdx.x] = c;
-}
-
-// pass 2: ranks and writes; see the file's head
-__global__ void __launch_bounds__(kThreads)
-compact_write(const uint4* __restrict__ mask, int64_t head, int64_t n,
-              int64_t chunk_words, const int64_t* __restrict__ counts,
-              int64_t* __restrict__ out, int64_t capacity,
-              int64_t* __restrict__ count_out) {
-  __shared__ int64_t red[2 * kWarps];
-  __shared__ int warp_pre[2][kWarps];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int b = blockIdx.x;
-  const int64_t end = head + n;
-  const int64_t words = (end + kLaneRows - 1) / kLaneRows;
-  const int64_t w0 = static_cast<int64_t>(b) * chunk_words;
-  int64_t w1 = w0 + chunk_words;
-  if (w1 > words) w1 = words;
-  // the first tile's mask is in flight while the offsets are summed
-  unsigned next = w0 + threadIdx.x < w1
-                      ? kept_bits(mask, w0 + threadIdx.x, head, end)
-                      : 0u;
-  int64_t before = 0, all = 0;
-  for (int j0 = threadIdx.x; j0 < static_cast<int>(gridDim.x);
-       j0 += 4 * kThreads) {
-    int64_t c[4];  // four loads in flight
-#pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      const int j = j0 + u * kThreads;
-      c[u] = j < static_cast<int>(gridDim.x) ? counts[j] : 0;
-    }
-#pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      all += c[u];
-      if (j0 + u * kThreads < b) before += c[u];
-    }
-  }
-  // both sums in one block reduction
-#pragma unroll
-  for (int d = 16; d > 0; d >>= 1) {
-    before += __shfl_down_sync(kFull, before, d);
-    all += __shfl_down_sync(kFull, all, d);
-  }
-  if (lane == 0) {
-    red[warp] = before;
-    red[kWarps + warp] = all;
-  }
-  __syncthreads();
-  before = all = 0;
-#pragma unroll
-  for (int w = 0; w < kWarps; ++w) {
-    before += red[w];
-    all += red[kWarps + w];
-  }
-
-  int64_t offset = before;  // rank of the tile's first true row
-  int buf = 0;
-  for (int64_t t0 = w0; t0 < w1 && offset < capacity; t0 += kThreads) {
-    const unsigned bits = next;
-    const int64_t w = t0 + kThreads + threadIdx.x;  // the next tile's
-    next = w < w1 ? kept_bits(mask, w, head, end) : 0u;
-    const int c = __popc(bits);
-    int pre = c;
-#pragma unroll
-    for (int d = 1; d < 32; d <<= 1) {
-      const int y = __shfl_up_sync(kFull, pre, d);
-      if (lane >= d) pre += y;
-    }
-    // warp totals, in one of two buffers so that one barrier a tile does
-    if (lane == 31) warp_pre[buf][warp] = pre;
-    __syncthreads();
-    int tile = 0, below = 0;
-#pragma unroll
-    for (int q = 0; q < kWarps; ++q) {
-      const int t = warp_pre[buf][q];
-      if (q < warp) below += t;
-      tile += t;
-    }
-    // each kept row straight to its rank
-    int64_t r = offset + below + pre - c;
-    const int64_t row0 = (t0 + threadIdx.x) * kLaneRows - head;
-    for (unsigned bb = bits; bb != 0 && r < capacity; bb &= bb - 1, ++r)
-      out[r] = row0 + __ffs(bb) - 1;
-    offset += tile;
-    buf ^= 1;
-  }
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
-  for (int64_t r = all + static_cast<int64_t>(b) * kThreads + threadIdx.x;
-       r < capacity; r += stride)
-    out[r] = 0;
-  if (b == 0 && threadIdx.x == 0) *count_out = all;
-}
-
 
 // ------------------------------------------------- one-launch compaction
 //
@@ -473,22 +337,17 @@ __device__ __forceinline__ void store_flag(uint64_t* p, uint64_t v) {
 // nearest inclusive prefix (as many tiles further back again until one
 // holds it), and publishes the tile's inclusive prefix.  The tile's kept
 // rows go to their ranks (`write_span`).  The last tile's prefix is the
-// count: written to count_out and to state[2].  A block that finds no
+// count: written to count_out and to state[1].  A block that finds no
 // tile left knows every tile is held by a block that is running, so it
-// waits for state[2] and zeroes its share of
-// [count, capacity); every wait is on a tile taken earlier, never on a
-// block that may not be resident.  The last block to leave (state[1])
-// resets the ticket, the count and the flags it used, so that the next
-// launch -- a CUDA graph's replay included -- finds them zero: the state
-// lives in a buffer the wrapper zeroes before the first launch that uses
-// it, outside any graph capture.
+// waits for state[1] and zeroes its share of [count, capacity); every wait
+// is on a tile taken earlier, never on a block that may not be resident.
+// The state is zero before the launch and read by no later one.
 __global__ void __launch_bounds__(kThreads)
 compact_lookback(const uint4* __restrict__ mask, int64_t head, int64_t n,
                  int64_t tiles, int64_t* __restrict__ out, int64_t capacity,
                  int64_t* __restrict__ count_out, uint64_t* state) {
   __shared__ int warp_total[kWarps];
   __shared__ int64_t shared_ticket, shared_prefix;
-  __shared__ int shared_last;
   __shared__ int64_t stage[kWarps][kStage];
   uint64_t* flags = state + kStateWords;
   const int lane = threadIdx.x & 31;
@@ -555,7 +414,7 @@ compact_lookback(const uint4* __restrict__ mask, int64_t head, int64_t n,
     const int64_t prefix = shared_prefix;
     if (t == tiles - 1 && threadIdx.x == 0) {
       *count_out = prefix + count;
-      store_flag(state + 2, kInclusive | static_cast<uint64_t>(prefix + count));
+      store_flag(state + 1, kInclusive | static_cast<uint64_t>(prefix + count));
     }
     if (prefix < capacity)
       write_span(bits, pre, prefix, w0, head, out, capacity, stage[warp]);
@@ -565,25 +424,11 @@ compact_lookback(const uint4* __restrict__ mask, int64_t head, int64_t n,
   // the count it publishes and zero a share of the tail
   if (threadIdx.x == 0) {
     uint64_t f;
-    while (((f = load_flag(state + 2)) >> 62) == 0) __nanosleep(64);
+    while (((f = load_flag(state + 1)) >> 62) == 0) __nanosleep(64);
     shared_prefix = static_cast<int64_t>(f & kValue);
   }
   __syncthreads();
   zero_tail(shared_prefix, capacity, out);
-  if (threadIdx.x == 0) {
-    __threadfence();
-    shared_last = atomicAdd(reinterpret_cast<unsigned long long*>(state + 1),
-                            1ull) == gridDim.x - 1;
-  }
-  __syncthreads();
-  if (shared_last) {  // every other block has left: reset for the next launch
-    for (int64_t j = threadIdx.x; j < tiles; j += kThreads) flags[j] = 0;
-    if (threadIdx.x == 0) {
-      state[0] = 0;
-      state[1] = 0;
-      state[2] = 0;
-    }
-  }
 }
 
 }  // namespace
@@ -631,33 +476,6 @@ extern "C" int p1_scatter(const void* idx, int idx_w, const void* mask,
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int p1_compact_tile_rows() { return kTileRows; }
-
-// mask: the 16-byte-aligned base of a one-byte-per-row mask of n rows
-// starting at byte `head` (0..15).  blocks chunks of chunk_words 16-byte
-// words (a multiple of kThreads) cover the mask.  counts: int64 [blocks]
-// scratch.  out: int64 [capacity]; count_out: one int64.  Returns
-// cudaGetLastError() after the two launches, or a negative code.
-extern "C" int p1_compact(const void* mask, int64_t head, int64_t n,
-                          int64_t chunk_words, int blocks, void* counts,
-                          void* out, int64_t capacity, void* count_out,
-                          void* stream) {
-  if (mask == nullptr || head < 0 || head >= kLaneRows) return -1;
-  if (blocks < 1 || chunk_words < 1 || chunk_words % kThreads != 0) return -2;
-  if (static_cast<int64_t>(blocks) * chunk_words * kLaneRows < head + n)
-    return -3;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const uint4* mk = static_cast<const uint4*>(mask);
-  compact_count<<<blocks, kThreads, 0, s>>>(mk, head, n, chunk_words,
-                                            static_cast<int64_t*>(counts));
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return static_cast<int>(e);
-  compact_write<<<blocks, kThreads, 0, s>>>(
-      mk, head, n, chunk_words, static_cast<const int64_t*>(counts),
-      static_cast<int64_t*>(out), capacity, static_cast<int64_t*>(count_out));
-  return static_cast<int>(cudaGetLastError());
-}
-
 extern "C" int p1_compact_state_words() { return kStateWords; }
 extern "C" int p1_compact_span_words() { return kSpanWords; }
 
@@ -670,12 +488,13 @@ extern "C" int p1_compact_blocks_per_sm() {
   return e == cudaSuccess ? blocks : -static_cast<int>(e);
 }
 
-// The one-launch compaction.  mask, head, n, out, capacity, count_out as
-// for p1_compact; `blocks` blocks take `tiles` tiles of kThreads *
-// kSpanWords words; `state`: the int64 words of the caller's state
+// The compaction.  mask: the 16-byte-aligned base of a one-byte-per-row
+// mask of n rows starting at byte `head` (0..15).  out: int64 [capacity];
+// count_out: one int64.  `blocks` blocks take `tiles` tiles of kThreads *
+// kSpanWords words; `state`: the int64 words of this call's state
 // (kStateWords, then a flag for each of at least `tiles` tiles), all zero
-// before the launch and left zero by it.  Returns cudaGetLastError() after
-// the launch, or a negative code.
+// before the launch.  Returns cudaGetLastError() after the launch, or a
+// negative code.
 extern "C" int p1_compact_one(const void* mask, int64_t head, int64_t n,
                               int64_t tiles, int blocks, void* out,
                               int64_t capacity, void* count_out, void* state,

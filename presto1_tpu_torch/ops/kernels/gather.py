@@ -19,7 +19,7 @@ Bound on an H100: memory.  The index is read and the output written once,
 coalesced; the source is read wherever the index says, a 32-byte sector for
 each element when the index is a random permutation, so a random gather is
 bound by the card's random sector rate, which falls as the source outgrows
-the L2.  ``csrc/gather.cu`` has three bodies: the row body (``gather_rows``:
+the L2.  ``csrc/gather.cu`` has two bodies: the row body (``gather_rows``:
 ``ROWS_PER_THREAD`` warp-interleaved rows a thread, the loads of a chunk of
 columns in flight before any store, evict-last loads of the sources and
 evict-first streams, column groups on ``blockIdx.y`` when the sources
@@ -29,9 +29,7 @@ in turn; the launch's shape is ``plan_gather``'s), the take body
 vectors, every source load of a step in flight before any store, the row
 index from a multiply-high by the width's magic number and none where the
 width is 1, the row body's L2 policy; the launch's shape is
-``plan_take``'s), and the strided body of the earlier design, which no
-engine path reaches (``chip_smoke.py`` times it as the earlier
-``take_along_axis``).
+``plan_take``'s).
 
 The ``*_plain`` functions are the same functions in plain tensor ops.  The
 wrappers take them only for tensors that lie on the CPU; for CUDA tensors
@@ -58,7 +56,6 @@ TAKE_LAUNCHES = 0
 THREADS = 256
 MAX_UNITS = 64      # word columns one launch of the row body takes
 LOADS = 16          # source words a thread of the row body keeps in flight
-MAX_PAIRS = 32      # (source, destination) pairs of the strided body
 ROWS_PER_THREAD = 4  # R: measured fastest at every element width
 BLOCKS_PER_SM = 64  # blocks an SM, at most, in a one-group grid
 # blocks an SM of each group when there are groups: fewer, so that a block
@@ -214,23 +211,18 @@ def _library():
     if lib is _READY:
         return lib
     p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-    pp = ctypes.POINTER(ctypes.c_void_p)
     lib.p1_gather_rows.argtypes = [ctypes.c_char_p, i, i, i, i, p]
     lib.p1_gather_rows.restype = i
-    lib.p1_gather_strided.argtypes = [pp, pp, i, i, p, i, i64, i64, i64,
-                                      ctypes.POINTER(i64), i, p]
-    lib.p1_gather_strided.restype = i
     lib.p1_take_along_axis.argtypes = [ctypes.c_char_p, i, i, i, i, i, p]
     lib.p1_take_along_axis.restype = i
     lib.p1_take_blocks_per_sm.argtypes = [i, i, i, i]
     lib.p1_take_blocks_per_sm.restype = i
     lib.p1_gather_geometry.argtypes = [ctypes.POINTER(i64)]
     lib.p1_gather_geometry.restype = None
-    got = (i64 * 9)()
+    got = (i64 * 8)()
     lib.p1_gather_geometry(got)
-    want = (THREADS, MAX_UNITS, LOADS, MAX_PAIRS,
-            struct.calcsize("<" + _UNIT), _packer(1).size, ROWS_PER_THREAD,
-            TAKE_LOADS, _TAKE.size)
+    want = (THREADS, MAX_UNITS, LOADS, struct.calcsize("<" + _UNIT),
+            _packer(1).size, ROWS_PER_THREAD, TAKE_LOADS, _TAKE.size)
     if tuple(got) != want:
         raise RuntimeError(f"csrc/gather.cu's geometry {tuple(got)} is not "
                            f"this module's {want}")

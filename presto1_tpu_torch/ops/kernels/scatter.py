@@ -25,16 +25,10 @@ memset); the compaction reads the mask once and writes ``capacity`` words.
 The CUDA kernels (``csrc/scatter.cu``) read the mask 16 bytes a lane, skip
 a warp's all-false rows by ballot, and rank kept rows by popcount scans.
 The compaction is ONE launch a call: a single pass with a decoupled
-look-back (``lookback``) that keeps a lane's mask words in registers from
-the load to the writes.  It keeps its per-call state (a tile counter and
-tile flags) in a buffer that is zeroed outside any CUDA graph capture and
-that the kernel leaves zero at its end, so a graph may replay it: one
-buffer per device and stream for launches outside a capture, and one of
-its own for each captured launch, set aside beforehand by
-``reserve_graph_states``.  The earlier two-launch body (``two_pass``:
-counts per chunk, then ranks and writes) stays only as the yardstick
-``_compact(mask, capacity, "two_pass")`` gives the same-run comparison;
-no plan takes it.
+look-back that keeps a lane's mask words in registers from the load to the
+writes.  Its state (a tile counter, the count and a flag a tile) is the
+call's own: one zeroed allocation that also holds the count it returns, so
+a CUDA graph that captures a call replays its zero-fill with it.
 
 ``scatter_distinct_plain`` and ``compact_plain`` are the same functions in
 plain tensor ops.  The wrappers take them only for tensors that lie on the
@@ -52,18 +46,16 @@ from . import _build
 
 # launches of the scatter kernel by ``scatter_distinct`` (and nothing else)
 LAUNCHES = 0
-# calls of ``compact`` that launched its kernel(s) (and nothing else)
+# calls of ``compact`` that launched its kernel (and nothing else)
 COMPACT_LAUNCHES = 0
 
 # the launch geometry of csrc/scatter.cu (checked against the library)
 THREADS = 256
 LANE_ROWS = 16                  # mask bytes a lane reads at once
 WARP_ROWS = 32 * LANE_ROWS      # rows a warp step of the scatter covers
-TILE_ROWS = THREADS * LANE_ROWS  # rows a tile of the compaction covers
 MAX_COLUMNS = 8                 # value columns one scatter launch takes
 SPAN_WORDS = 4                  # mask words a lane of the look-back holds
-STATE_WORDS = 3                 # state words ahead of the tile flags
-MIN_STATE_TILES = 4096          # tile flags a state buffer has at least
+STATE_WORDS = 2                 # state words ahead of the tile flags
 
 _IDX_DTYPES = (torch.int32, torch.int64)
 _X_DTYPES = (torch.int32, torch.int64, torch.float64)
@@ -79,43 +71,20 @@ def scatter_plan(n: int, head: int, sms: int) -> int:
     return max(1, min(-(-steps // (THREADS // 32)), sms * 8))
 
 
-def compact_plan(n: int, head: int, sms: int) -> Tuple[int, int]:
-    """(blocks, 16-byte words a block) of the compaction over ``n`` rows
-    whose mask starts ``head`` bytes past a 16-byte boundary.  Blocks own
-    whole tiles (``TILE_ROWS`` rows), at most 8 blocks an SM; the two
-    passes share this partition."""
-    words = -(-(head + n) // LANE_ROWS)
-    tiles = max(1, -(-words // THREADS))
-    per = -(-tiles // min(tiles, sms * 8))
-    return -(-tiles // per), per * THREADS
-
-
 class CompactPlan(NamedTuple):
-    route: str   # "lookback" or "two_pass"
     blocks: int
-    tiles: int   # look-back: tiles of THREADS * SPAN_WORDS words; else 0
-    chunk: int   # two_pass: words a block (whole tiles of THREADS words);
-                 # else 0
+    tiles: int   # tiles of THREADS * SPAN_WORDS words
 
 
-def compact_route(n: int, head: int, sms: int, occupancy,
-                  route: str = "lookback") -> CompactPlan:
+def compact_route(n: int, head: int, sms: int, occupancy) -> CompactPlan:
     """The launch of ``compact`` over ``n >= 1`` rows whose mask starts
     ``head`` bytes past a 16-byte boundary; ``occupancy()`` is the blocks
-    an SM the library reports for the look-back.
-
-    ``lookback`` (the plan's route): tiles of ``THREADS * SPAN_WORDS``
-    words, one block a tile, at most the occupancy's blocks on every SM
-    (they take further tiles in turn).  ``two_pass``: the earlier
-    two-launch body, ``compact_plan``'s partition."""
-    if route == "two_pass":
-        blocks, chunk = compact_plan(n, head, sms)
-        return CompactPlan(route, blocks, 0, chunk)
-    if route != "lookback":
-        raise ValueError(f"unknown compaction route {route!r}")
+    an SM the library reports for the look-back.  Tiles of ``THREADS *
+    SPAN_WORDS`` words, one block a tile, at most the occupancy's blocks on
+    every SM (they take further tiles in turn)."""
     words = -(-(head + n) // LANE_ROWS)
     tiles = -(-words // (THREADS * SPAN_WORDS))
-    return CompactPlan(route, min(tiles, sms * occupancy()), tiles, 0)
+    return CompactPlan(min(tiles, sms * occupancy()), tiles)
 
 
 def _check_1d(name, t, n, device):
@@ -178,20 +147,16 @@ def _library():
         pp, ip = ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int)
         fn.argtypes = [p, i, p, i64, i64, i64, i, pp, ip, pp, p, i64, i, p]
         fn.restype = i
-        lib.p1_compact.argtypes = [p, i64, i64, i64, i, p, p, i64, p, p]
-        lib.p1_compact.restype = i
         lib.p1_compact_one.argtypes = [p, i64, i64, i64, i, p, i64, p, p, p]
         lib.p1_compact_one.restype = i
         for name in ("p1_scatter_threads", "p1_scatter_max_columns",
-                     "p1_compact_tile_rows", "p1_compact_state_words",
-                     "p1_compact_span_words", "p1_compact_blocks_per_sm"):
+                     "p1_compact_state_words", "p1_compact_span_words",
+                     "p1_compact_blocks_per_sm"):
             getattr(lib, name).argtypes = []
             getattr(lib, name).restype = i
         got = (lib.p1_scatter_threads(), lib.p1_scatter_max_columns(),
-               lib.p1_compact_tile_rows(), lib.p1_compact_state_words(),
-               lib.p1_compact_span_words())
-        if got != (THREADS, MAX_COLUMNS, TILE_ROWS, STATE_WORDS,
-                   SPAN_WORDS):
+               lib.p1_compact_state_words(), lib.p1_compact_span_words())
+        if got != (THREADS, MAX_COLUMNS, STATE_WORDS, SPAN_WORDS):
             raise RuntimeError(f"csrc/scatter.cu's geometry {got} is not "
                                f"this module's")
     return lib
@@ -272,16 +237,6 @@ def scatter_distinct(idx: torch.Tensor, x: Values, size: int,
 
 # blocks an SM of the look-back: device index -> occupancy
 _OCCUPANCY = {}
-# the look-back's state for launches outside a CUDA graph capture: (device,
-# stream) -> int64 [STATE_WORDS + tiles], zeroed once, left zero by every
-# launch (the launches of one stream run in turn)
-_STATE = {}
-# zeroed states set aside outside a capture, one for each launch a capture
-# will record: device index -> list
-_SPARE = {}
-# states taken by captured launches: a graph may be replayed for as long as
-# the process lives, so none of them is ever handed out again
-_CAPTURED = []
 
 
 def _occupancy(lib, dev) -> int:
@@ -295,88 +250,14 @@ def _occupancy(lib, dev) -> int:
     return got
 
 
-def _capturing() -> bool:
-    """Whether the current CUDA stream is capturing a graph."""
-    return torch.cuda.is_current_stream_capturing()
-
-
-def reserve_graph_states(dev: torch.device, count: int,
-                         tiles: int = MIN_STATE_TILES) -> None:
-    """Set aside ``count`` zeroed state buffers on ``dev``, each for one
-    compaction of at most ``tiles`` look-back tiles (``MIN_STATE_TILES``:
-    masks of up to 2^26 rows) that a CUDA graph capture will record.  Call
-    it before the capture begins: a captured launch takes one of them for
-    good, so that no state is zeroed inside a graph and no two captured
-    launches share one.  Returns once the zeros are written."""
-    if dev.type == "cuda" and _capturing():
-        raise RuntimeError("reserve_graph_states: called during a CUDA "
-                           "graph capture; call it before the capture")
-    _SPARE.setdefault(_index(dev), []).extend(
-        torch.zeros((STATE_WORDS + tiles,), dtype=torch.int64, device=dev)
-        for _ in range(count))
-    if dev.type == "cuda":
-        # a graph may replay on another stream: the zeros are written once
-        # this stream is done.  Not the whole device: another thread's
-        # capture may be under way, and a device-wide wait breaks it
-        torch.cuda.current_stream(dev).synchronize()
-
-
-def eager_state_tiles(dev: torch.device) -> int:
-    """The most look-back tiles that a launch outside a capture on ``dev``
-    has needed so far, at least ``MIN_STATE_TILES``: what a state set aside
-    for capturing the same launches must hold."""
-    return max([st.numel() - STATE_WORDS for (index, _), st in _STATE.items()
-                if index == _index(dev)] + [MIN_STATE_TILES])
-
-
-def _index(dev: torch.device):
-    """``dev``'s index, under which its states are kept: the current
-    device's for a CUDA device given without one (``"cuda"``), as a
-    tensor's device always has one."""
-    if dev.type == "cuda" and dev.index is None:
-        return torch.cuda.current_device()
-    return dev.index
-
-
-def _state(dev, stream: int, tiles: int, capturing: bool) -> torch.Tensor:
-    """The zeroed state buffer for a look-back launch of ``tiles`` tiles on
-    ``stream`` of ``dev`` (called on that stream).  Outside a capture: the
-    stream's own buffer, made larger where it holds too few flags (a new
-    buffer is zeroed on the stream, before the launch that uses it).  In a
-    capture: a buffer ``reserve_graph_states`` set aside, the launch's for
-    good; none set aside raises."""
-    if not capturing:
-        st = _STATE.get((dev.index, stream))
-        if st is None or st.numel() - STATE_WORDS < tiles:
-            st = _STATE[(dev.index, stream)] = torch.zeros(
-                (STATE_WORDS + max(tiles, MIN_STATE_TILES),),
-                dtype=torch.int64, device=dev)
-        return st
-    spare = _SPARE.get(dev.index, [])
-    for k, st in enumerate(spare):
-        if st.numel() - STATE_WORDS >= tiles:
-            _CAPTURED.append(spare.pop(k))
-            return st
-    raise RuntimeError(
-        f"a compaction of {tiles} tiles captured into a CUDA graph needs a "
-        f"zeroed state buffer set aside before the capture: call "
-        f"scatter.reserve_graph_states(device, count, tiles) first")
-
-
 def compact(mask: torch.Tensor, capacity: int):
     """(indices[capacity] int64, count) of the true rows of ``mask``: the
     row numbers in order, padded with 0 (truncated to the first
     ``capacity`` when more rows are true); ``count`` the number of true
     rows, a 0-d int64 tensor on the mask's device.
 
-    ``mask``: 1-D contiguous bool.  On a CUDA device one launch of the
-    look-back; a CUDA graph capture of it needs ``reserve_graph_states``
-    first."""
-    return _compact(mask, capacity, "lookback")
-
-
-def _compact(mask: torch.Tensor, capacity: int, route: str):
-    """``compact`` by ``route``: ``lookback`` or ``two_pass``."""
+    ``mask``: 1-D contiguous bool.  On a CUDA device one zero-fill of the
+    call's state and one launch of the look-back."""
     global COMPACT_LAUNCHES
     if not isinstance(mask, torch.Tensor) or mask.dim() != 1:
         raise ValueError("mask: expected a 1-D tensor")
@@ -398,24 +279,17 @@ def _compact(mask: torch.Tensor, capacity: int, route: str):
                 mask.new_zeros((), dtype=torch.int64))
     base, head = _mask_base(mask)
     plan = compact_route(n, head, _build.sm_count(dev),
-                         lambda: _occupancy(lib, dev), route)
+                         lambda: _occupancy(lib, dev))
     out = mask.new_empty((capacity,), dtype=torch.int64)
-    if plan.route == "two_pass":
-        # one allocation for the chunk counts and the count
-        scratch = mask.new_empty((plan.blocks + 1,), dtype=torch.int64)
-        err = _build.launch_on(dev, lambda stream: lib.p1_compact(
-            base, head, n, plan.chunk, plan.blocks, scratch.data_ptr(),
-            out.data_ptr(), capacity, scratch[plan.blocks:].data_ptr(),
-            stream))
-    else:
-        scratch = mask.new_empty((1,), dtype=torch.int64)  # the count
-        err = _build.launch_on(dev, lambda stream: lib.p1_compact_one(
-            base, head, n, plan.tiles, plan.blocks, out.data_ptr(),
-            capacity, scratch.data_ptr(),
-            _state(dev, stream, plan.tiles, _capturing()).data_ptr(),
-            stream))
+    # the count, then the look-back's state: zero before the launch, and
+    # this call's alone for as long as its count is alive
+    scratch = mask.new_zeros((1 + STATE_WORDS + plan.tiles,),
+                             dtype=torch.int64)
+    err = _build.launch_on(dev, lambda stream: lib.p1_compact_one(
+        base, head, n, plan.tiles, plan.blocks, out.data_ptr(), capacity,
+        scratch.data_ptr(), scratch[1:].data_ptr(), stream))
     if err != 0:
         raise RuntimeError(f"compaction kernel launch failed: error {err} "
                            f"(n={n}, capacity={capacity}, plan={plan})")
     COMPACT_LAUNCHES += 1
-    return out, scratch[-1]
+    return out, scratch[0]

@@ -316,9 +316,8 @@ def _expanded(fmt):
 def test_gather_geometry_and_params_match_the_source():
     text = _source("gather")
     c = _constants(text)
-    assert (G.THREADS, G.MAX_UNITS, G.LOADS, G.MAX_PAIRS,
-            G.ROWS_PER_THREAD) == (c["kThreads"], c["kMaxUnits"],
-                                   c["kLoads"], c["kMaxPairs"], c["kRows"])
+    assert (G.THREADS, G.MAX_UNITS, G.LOADS, G.ROWS_PER_THREAD) == (
+        c["kThreads"], c["kMaxUnits"], c["kLoads"], c["kRows"])
     fmt = "<" + _struct_format(text, "Params", c)
     assert _expanded(G._packer(G.MAX_UNITS).format) == fmt
     for count in (1, 9, G.MAX_UNITS):

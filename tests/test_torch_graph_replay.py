@@ -154,7 +154,7 @@ class _Graph:
         self.replays += 1
 
 
-def _capture_on_cpu(cls, run, device, compactions):
+def _capture_on_cpu(cls, run, device):
     data, validity, pair = run()
     pack, layout, at = cuda_graph._pack(data, validity, pair, device)
     return cls(_Graph(run, pack, device), pack, layout,
@@ -187,7 +187,7 @@ def test_stand_in_replay_matches_eager_and_oracle(cpu, cpu_frames,
     cq = stand_in(cpu.compile(QUERIES[qid]))
     eager = cq().to_pandas()
     assert cq.graph_state == "pending" and "warm-up" in cq.graph_reason
-    assert cq._warm_compactions is not None
+    assert cq._warmed
     runs = [cq().to_pandas() for _ in range(2)]
     assert cq.graph_state == "captured" and cq.graph_reason is None
     assert cq._graph.graph.replays == 2
@@ -262,7 +262,7 @@ def test_stand_in_threads_share_one_statement(cpu, stand_in):
 
 
 def test_stand_in_failed_capture_runs_eagerly(cpu, stand_in, monkeypatch):
-    def refuse(cls, run, device, compactions):
+    def refuse(cls, run, device):
         run()
         raise RuntimeError("operation not permitted when stream is "
                            "capturing")

@@ -3,8 +3,9 @@ plans (pure Python, the same on every machine), and the plain versions their
 wrappers run for CPU tensors against the JAX package's functions, on inputs
 made with numpy from a seed.  Everything exact.
 
-The CUDA kernels run only on a card: ``chip_smoke.py`` and the tests marked
-``cuda`` below hold each path against these plain versions there.
+The CUDA kernels run only on a card: ``chip_smoke.py`` and the tests of
+``test_torch_scatter_dense_on_card.py`` hold each path against these plain
+versions there.
 """
 
 import ctypes
@@ -161,60 +162,38 @@ def test_merge_join_scatters_once(kind, seed, monkeypatch):
 # ------------------------------------------------------------ launch plans
 
 
-@pytest.mark.parametrize("n", [0, 1, 15, 16, 17, 2 ** 23])
-@pytest.mark.parametrize("head", [0, 1, 15])
-@pytest.mark.parametrize("sms", [1, H100_SMS])
-def test_compact_plan_covers_the_mask(n, head, sms):
-    """The two compaction passes' partition: whole tiles, every 16-byte
-    word of the mask in exactly one block, no empty block, at most 8
-    blocks an SM."""
-    blocks, chunk = S.compact_plan(n, head, sms)
-    words = -(-(head + n) // S.LANE_ROWS)
-    assert chunk % S.THREADS == 0 and chunk >= S.THREADS
-    assert 1 <= blocks <= max(1, sms * 8)
-    assert blocks * chunk >= words
-    assert blocks == 1 or (blocks - 1) * chunk < words
-    if n == 2 ** 23 and sms == H100_SMS:
-        # 524,288 words (one more off the grid) in 2,048 tiles: two a block
-        assert chunk == 2 * S.THREADS and blocks in (1024, 1025)
-
-
 @pytest.mark.parametrize("n", [1, 15, 16, 17, 4095, 4096, 4097, 32_768,
                                32_769, 6_002_010, 2 ** 31 + 5])
 @pytest.mark.parametrize("head", [0, 1, 15])
-def test_compact_route_covers_the_mask(n, head):
+@pytest.mark.parametrize("sms", [1, H100_SMS])
+def test_compact_route_covers_the_mask(n, head, sms):
     """The look-back's partition: tiles of THREADS * SPAN_WORDS words cover
-    the mask, one block a tile up to the occupancy's blocks on every SM."""
+    the mask, one block a tile up to the occupancy's blocks on every SM
+    (on one SM, 7 blocks take every tile in turn)."""
     asked = []
 
     def occupancy():
         asked.append(1)
         return 7
 
-    plan = S.compact_route(n, head, H100_SMS, occupancy)
+    plan = S.compact_route(n, head, sms, occupancy)
     words = -(-(head + n) // S.LANE_ROWS)
-    assert plan.route == "lookback" and asked == [1]
+    assert asked == [1]
     assert plan.tiles == -(-words // (S.THREADS * S.SPAN_WORDS))
     assert (plan.tiles - 1) * S.THREADS * S.SPAN_WORDS < words
-    assert plan.blocks == min(plan.tiles, H100_SMS * 7) and plan.chunk == 0
+    assert plan.blocks == min(plan.tiles, sms * 7) >= 1
 
 
-@pytest.mark.parametrize("n,route", [
-    (1, "lookback"), (4097, "lookback"), (2 ** 20 - 1, "lookback"),
-    (2 ** 20, "lookback"), (2_880_404, "lookback"),
-    (6_002_010, "lookback")])
-def test_compact_route_choice(n, route):
-    """``compact`` plans the look-back at every size; the two-pass body,
-    asked for by name, keeps ``compact_plan``'s partition and asks no
-    occupancy; an unknown route raises."""
+@pytest.mark.parametrize("n", [1, 4097, 2 ** 20 - 1, 2 ** 20, 2_880_404,
+                               6_002_010])
+def test_compact_route_choice(n):
+    """``compact`` plans the one look-back launch at every size the engine
+    calls it at, and takes no other route."""
     occ = lambda: 8  # noqa: E731
     plan = S.compact_route(n, 0, H100_SMS, occ)
-    assert plan.route == route and plan.chunk == 0
-    two = S.compact_route(n, 3, H100_SMS, lambda: 1 / 0, "two_pass")
-    assert (two.route, two.tiles) == ("two_pass", 0)
-    assert (two.blocks, two.chunk) == S.compact_plan(n, 3, H100_SMS)
-    with pytest.raises(ValueError):
-        S.compact_route(10, 0, H100_SMS, occ, "cooperative")
+    assert plan == S.CompactPlan(min(plan.tiles, H100_SMS * 8), plan.tiles)
+    with pytest.raises(TypeError):
+        S.compact_route(n, 3, H100_SMS, occ, "lookback")
 
 
 @pytest.mark.parametrize("head", range(16))
@@ -246,55 +225,11 @@ def test_compact_of_an_empty_mask_matches_reference(capacity):
     assert p_count.dim() == 0 and p_idx.dtype == torch.int64
 
 
-def test_compact_state_is_kept_per_device_and_stream(monkeypatch):
-    """The look-back's state outside a graph capture: one zeroed buffer
-    per (device, stream), reused call after call; a call with more tiles
-    than it holds gets a larger one in its place."""
-    monkeypatch.setattr(S, "_STATE", {})
-    cpu = torch.device("cpu")
-    a = S._state(cpu, 5, 10, False)
-    assert a.dtype == torch.int64 and not bool(a.any())
-    assert a.numel() == S.STATE_WORDS + S.MIN_STATE_TILES
-    assert S._state(cpu, 5, S.MIN_STATE_TILES, False) is a
-    b = S._state(cpu, 6, 10, False)
-    assert b is not a
-    c = S._state(cpu, 5, S.MIN_STATE_TILES + 1, False)
-    assert c is not a and c.numel() == S.STATE_WORDS + S.MIN_STATE_TILES + 1
-    assert S._state(cpu, 5, 3, False) is c
-
-
-@pytest.mark.parametrize("captures", [1, 2, 5])
-def test_captured_compactions_take_reserved_states(monkeypatch, captures):
-    """In a graph capture each launch takes a zeroed buffer that
-    ``reserve_graph_states`` set aside, for good: never the stream's own
-    buffer, never one another launch took, none zeroed during the capture;
-    none left (or none large enough) raises."""
-    monkeypatch.setattr(S, "_STATE", {})
-    monkeypatch.setattr(S, "_SPARE", {})
-    monkeypatch.setattr(S, "_CAPTURED", [])
-    cpu = torch.device("cpu")
-    eager = S._state(cpu, 5, 10, False)
-    with pytest.raises(RuntimeError, match="reserve_graph_states"):
-        S._state(cpu, 5, 10, True)
-    S.reserve_graph_states(cpu, captures)
-    S.reserve_graph_states(cpu, 1, tiles=20)
-    got = [S._state(cpu, 5, 10, True) for _ in range(captures)]
-    assert all(st is not eager for st in got)
-    assert len({id(st) for st in got}) == captures
-    assert all(st.numel() == S.STATE_WORDS + S.MIN_STATE_TILES
-               and not bool(st.any()) for st in got)
-    # a buffer too small for the launch is passed over, and stays set aside
-    with pytest.raises(RuntimeError, match="reserve_graph_states"):
-        S._state(cpu, 5, 21, True)
-    small = S._state(cpu, 5, 20, True)
-    assert small.numel() == S.STATE_WORDS + 20
-    assert S._CAPTURED == got + [small] and S._SPARE[None] == []
-    assert S._state(cpu, 5, 10, False) is eager
-
-
 class _FakeCompact:
-    """Stands for the scatter library's compactions: records each launch
-    and carries it out on host memory from its arguments alone."""
+    """Stands for the scatter library's compaction: records each launch,
+    with whether its state read all zero when it began, carries the launch
+    out on host memory from its arguments alone, and then leaves the state
+    dirty, as the kernel leaves its ticket and flags."""
 
     def __init__(self):
         self.launches = []
@@ -302,21 +237,13 @@ class _FakeCompact:
     def p1_compact_blocks_per_sm(self):
         return 8
 
-    def p1_compact(self, base, head, n, chunk, blocks, counts, out,
-                   capacity, count_out, stream):
-        self.launches.append({"route": "two_pass", "blocks": blocks,
-                              "chunk": chunk, "stream": stream})
-        return self._carry_out(base, head, n, out, capacity, count_out)
-
     def p1_compact_one(self, base, head, n, tiles, blocks, out, capacity,
                        count_out, state, stream):
-        self.launches.append({"route": "lookback", "tiles": tiles,
-                              "blocks": blocks, "state": state,
-                              "stream": stream})
-        return self._carry_out(base, head, n, out, capacity, count_out)
-
-    @staticmethod
-    def _carry_out(base, head, n, out, capacity, count_out):
+        words = S.STATE_WORDS + tiles
+        zero = not any(ctypes.string_at(state, 8 * words))
+        self.launches.append({"tiles": tiles, "blocks": blocks,
+                              "state": state, "count_out": count_out,
+                              "zero": zero, "stream": stream})
         assert base % 16 == 0 and 0 <= head < 16
         mask = np.frombuffer(ctypes.string_at(base + head, n), np.uint8)
         rows = np.nonzero(mask)[0].astype(np.int64)
@@ -324,47 +251,83 @@ class _FakeCompact:
         got[:min(capacity, rows.size)] = rows[:capacity]
         ctypes.memmove(out, got.ctypes.data, got.nbytes)
         ctypes.memmove(count_out, np.int64(rows.size).tobytes(), 8)
+        ctypes.memset(state, 0xFF, 8 * words)
         return 0
 
 
-@pytest.mark.parametrize("route,rows", [("lookback", 70_013),
-                                        ("two_pass", 70_013),
-                                        (None, 70_013), (None, 2 ** 20 + 5)])
-@pytest.mark.parametrize("capturing", [False, True])
-def test_compact_is_one_launch_of_its_route(monkeypatch, route, rows,
-                                            capturing):
-    """On a CUDA tensor ``compact`` (``route`` None) makes ONE launch of the
-    look-back, with the state ``_state`` gives for the stream and for
-    whether it is capturing; ``_compact`` by name launches that route; the
-    result is the plain version's."""
+@pytest.fixture
+def fake_compact(monkeypatch):
+    """``compact`` on ``_OnCuda`` tensors through ``_FakeCompact``, on
+    stream 77 of a card of H100_SMS SMs."""
     lib = _FakeCompact()
     monkeypatch.setattr(S, "_library", lambda: lib)
     monkeypatch.setattr(S, "_OCCUPANCY", {})
-    monkeypatch.setattr(S, "_capturing", lambda: capturing)
     monkeypatch.setattr(_build, "launch_on", lambda dev, launch: launch(77))
     monkeypatch.setattr(_build, "sm_count", lambda dev: H100_SMS)
-    states = []
+    return lib
 
-    def state(dev, stream, tiles, capture):
-        states.append((stream, tiles, capture))
-        return torch.zeros(S.STATE_WORDS + tiles, dtype=torch.int64)
 
-    monkeypatch.setattr(S, "_state", state)
+@pytest.mark.parametrize("rows", [1, 4097, 70_013, 2 ** 20 + 5])
+@pytest.mark.parametrize("capturing", [False, True])
+def test_compact_is_one_launch_of_its_route(monkeypatch, fake_compact, rows,
+                                            capturing):
+    """On a CUDA tensor ``compact`` makes ONE launch of the look-back, the
+    same inside a CUDA graph capture as outside one, and its result is the
+    plain version's."""
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing",
+                        lambda: capturing)
     rng = np.random.RandomState(5)
     full = rng.rand(rows + 3) < 0.3
     for lo in (0, 3):
         mask = _t(full).as_subclass(_OnCuda)[lo:lo + rows]
         want_idx, want_count = S.compact_plain(_t(full)[lo:lo + rows], 9000)
         before = S.COMPACT_LAUNCHES
-        idx, count = S.compact(mask, 9000) if route is None \
-            else S._compact(mask, 9000, route)
+        idx, count = S.compact(mask, 9000)
         assert S.COMPACT_LAUNCHES - before == 1
         assert torch.equal(idx.as_subclass(torch.Tensor), want_idx)
         assert int(count.as_subclass(torch.Tensor)) == int(want_count)
-    assert [d["route"] for d in lib.launches] == [route or "lookback"] * 2
-    assert {d["stream"] for d in lib.launches} == {77}
-    one_launch = [d for d in lib.launches if d["route"] == "lookback"]
-    assert states == [(77, d["tiles"], capturing) for d in one_launch]
+        plan = S.compact_route(rows, mask.data_ptr() % 16, H100_SMS,
+                               lambda: 8)
+        launch = fake_compact.launches[-1]
+        assert (launch["tiles"], launch["blocks"]) == plan
+        assert launch["zero"]
+    assert len(fake_compact.launches) == 2
+    assert {d["stream"] for d in fake_compact.launches} == {77}
+
+
+@pytest.mark.parametrize("tiles", [1, 367, 4097])
+@pytest.mark.parametrize("capturing", [False, True])
+def test_compact_state_is_zeroed_and_its_own_per_call(monkeypatch,
+                                                      fake_compact, tiles,
+                                                      capturing):
+    """Each call's look-back state reads all zero when its launch begins
+    (the kernel leaves it dirty), holds ``STATE_WORDS`` words and a flag
+    for each of the call's tiles, follows the count the call returns in
+    one allocation, and overlaps no state or result of another call whose
+    result is still alive: the same inside a capture as outside one."""
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing",
+                        lambda: capturing)
+    n = tiles * S.THREADS * S.SPAN_WORDS * S.LANE_ROWS
+    mask = torch.zeros(n, dtype=torch.bool)
+    mask[::n // 5 + 1] = True
+    mask = mask.as_subclass(_OnCuda)
+    for _ in range(2):  # freed at once: the next call may get its memory
+        S.compact(mask, 8)
+    results = [S.compact(mask, 8) for _ in range(3)]
+    assert all(d["zero"] for d in fake_compact.launches[:2])
+    held = []
+    for (idx, count), d in zip(results, fake_compact.launches[2:]):
+        storage = count.untyped_storage()
+        assert d["zero"] and d["tiles"] == tiles
+        assert d["count_out"] == storage.data_ptr() == count.data_ptr()
+        assert d["state"] == d["count_out"] + 8
+        assert storage.nbytes() == 8 * (1 + S.STATE_WORDS + tiles)
+        assert idx.as_subclass(torch.Tensor)[:5].tolist() == \
+            list(range(0, n, n // 5 + 1))[:5]
+        held += [(d["state"], storage.nbytes() - 8),
+                 (idx.data_ptr(), 8 * idx.numel())]
+    held.sort()
+    assert all(a + size <= b for (a, size), (b, _) in zip(held, held[1:]))
 
 
 @pytest.mark.parametrize("n", [0, 1, 15, 16, 17, 2 ** 23])
@@ -545,149 +508,3 @@ def test_cuda_tensor_launches_or_raises(monkeypatch, call):
             S.scatter_distinct(fake, [fake, fake], 8, mask)
     assert called == ["build:scatter"]
     assert (S.LAUNCHES, S.COMPACT_LAUNCHES) == before
-
-
-# -------------------------------------------------------- on the card only
-
-
-@pytest.fixture
-def card():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
-    return torch.device("cuda", 0)
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("path", ["int", "general"])
-def test_dense_paths_match_plain_on_card(card, path):
-    """Each path of ``dense_group_agg`` that takes an integer recipe equals
-    the plain version exactly, views off the 16-byte grid included."""
-    rng = np.random.RandomState(11)
-    n = 100_003
-    word = _t(rng.randint(-1, 14, n)).to(card)
-    cols = [_t(rng.randint(-2 ** 62, 2 ** 62, n)).to(card),
-            _t(rng.randint(-2 ** 31, 2 ** 31 - 1, n).astype(np.int32))
-            .to(card), _t(rng.rand(n) > 0.5).to(card)]
-    valid = _t(rng.rand(n) > 0.3).to(card)
-    slots = [("sum", 0, None), ("low", 0, valid), ("high", 0, None),
-             ("min", 1, None), ("max", 0, valid), ("sum", 2, None),
-             ("count", None, valid)]
-    for lo in (0, 1):
-        w = word[lo:]
-        cs = [c[lo:] for c in cols]
-        ss = [(op, c, None if v is None else v[lo:]) for op, c, v in slots]
-        got = D._dense_group_agg(w, 13, cs, ss, path)
-        want = D.dense_group_agg_plain(w, 13, cs, ss)
-        assert torch.equal(got.counts, want.counts)
-        assert torch.equal(got.first_row, want.first_row)
-        for k in range(len(ss)):
-            assert torch.equal(got.slot(k), want.slot(k))
-
-
-@pytest.mark.cuda
-def test_histogram_path_matches_bincount_on_card(card):
-    rng = np.random.RandomState(12)
-    for dt in (np.int32, np.int64):
-        v = _t(rng.randint(0, 256, 1 << 20).astype(dt)).to(card)
-        for lo in (0, 1, 3):
-            got = D.dense_group_agg(v[lo:], 256, [], [])
-            assert torch.equal(got.counts,
-                               torch.bincount(v[lo:], minlength=256))
-            want = D.dense_group_agg_plain(v[lo:], 256, [], [])
-            assert torch.equal(got.first_row, want.first_row)
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("density", [0.0, 0.036, 1.0])
-def test_compact_matches_nonzero_on_card(card, density):
-    rng = np.random.RandomState(13)
-    full = _t(rng.rand(1_000_019) < density).to(card)
-    for lo in (0, 5):
-        m = full[lo:]
-        want = torch.nonzero(m)[:, 0]
-        for capacity in (0, want.shape[0] // 2, want.shape[0] + 33):
-            idx, count = S.compact(m, capacity)
-            live = min(capacity, want.shape[0])
-            assert int(count) == want.shape[0]
-            assert torch.equal(idx[:live], want[:live])
-            assert not bool(idx[live:].any())
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("route", ["lookback", "two_pass"])
-def test_compact_bodies_match_nonzero_on_card(card, route):
-    """Both compaction bodies against ``torch.nonzero``: views off the
-    16-byte grid, capacities below and above the count, and the outputs of
-    a replayed CUDA graph (the look-back's state is left zero)."""
-    rng = np.random.RandomState(15)
-    full = _t(rng.rand(2_000_019) < 0.036).to(card)
-    for lo in (0, 5):
-        m = full[lo:]
-        want = torch.nonzero(m)[:, 0]
-        for capacity in (0, want.shape[0] // 2, want.shape[0] + 33):
-            idx, count = S._compact(m, capacity, route)
-            live = min(capacity, want.shape[0])
-            assert int(count) == want.shape[0]
-            assert torch.equal(idx[:live], want[:live])
-            assert not bool(idx[live:].any())
-    graph, outs = torch.cuda.CUDAGraph(), []
-    S._compact(full, 99_999, route)
-    S.reserve_graph_states(card, 5)
-    with torch.cuda.graph(graph):
-        for _ in range(5):
-            outs.append(S._compact(full, 99_999, route))
-    graph.replay()
-    graph.replay()
-    torch.cuda.synchronize()
-    want_idx, want_count = S.compact_plain(full, 99_999)
-    for idx, count in outs:
-        assert torch.equal(idx, want_idx) and torch.equal(count, want_count)
-
-
-@pytest.mark.cuda
-def test_compact_graphs_captured_twice_replay_apart(card):
-    """Two graphs captured on one capture stream, the first never replayed
-    before the second is captured and replayed, then both replayed on two
-    streams at once: each answers its own mask (no state is shared), and
-    a capture with no state set aside raises before it records a launch."""
-    rng = np.random.RandomState(16)
-    masks = [_t(rng.rand(3_000_017) < d).to(card) for d in (0.036, 0.5)]
-    for m in masks:
-        S.compact(m, 7)
-    torch.cuda.synchronize()
-    S._SPARE.pop(card.index, None)
-    with pytest.raises(RuntimeError, match="reserve_graph_states"):
-        with torch.cuda.graph(torch.cuda.CUDAGraph()):
-            S.compact(masks[0], 7)
-    graphs, outs = [], []
-    for m in masks:
-        S.reserve_graph_states(card, 3)
-        graphs.append(torch.cuda.CUDAGraph())
-        with torch.cuda.graph(graphs[-1]):
-            outs.append([S.compact(m, m.shape[0]) for _ in range(3)])
-    graphs[1].replay()
-    streams = [torch.cuda.Stream() for _ in graphs]
-    torch.cuda.synchronize()
-    for _ in range(3):
-        for g, st in zip(graphs, streams):
-            with torch.cuda.stream(st):
-                g.replay()
-    torch.cuda.synchronize()
-    for m, got in zip(masks, outs):
-        want_idx, want_count = S.compact_plain(m, m.shape[0])
-        for idx, count in got:
-            assert torch.equal(idx, want_idx)
-            assert torch.equal(count, want_count)
-
-
-@pytest.mark.cuda
-def test_scatter_columns_match_plain_on_card(card):
-    rng = np.random.RandomState(14)
-    n = 300_007
-    perm = _t(rng.permutation(n)).to(card)
-    mask = _t(rng.rand(n) > 0.96).to(card)
-    xs = [perm.to(torch.int32), perm, perm.to(torch.float64)]
-    got = S.scatter_distinct(perm, xs, n, mask)
-    want = S.scatter_distinct_plain(perm, xs, n, mask)
-    for a, b in zip(got, want):
-        assert torch.equal(a, b)
