@@ -109,8 +109,10 @@ class Engine:
     def _plan_ast(self, q, user: Optional[str] = None) -> LogicalNode:
         with span("plan"):
             plan = Planner(self.catalog).plan(q)
-        with span("optimize"):
-            plan = optimize(plan, self.catalog)
+        # traced, the span's detail is the join search's counts
+        detail = None if TRACE.get() is None else {}
+        with span("optimize", detail):
+            plan = optimize(plan, self.catalog, detail)
         self._enforce_access(plan, user)
         return plan
 

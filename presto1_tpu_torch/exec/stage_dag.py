@@ -39,7 +39,7 @@ from typing import Dict, List, Optional, Tuple
 
 from ..expr import ir
 from ..sql import logical as L
-from ..sql.optimizer import _estimate
+from ..sql.stats import derive
 
 Path = Tuple[int, ...]
 
@@ -242,7 +242,7 @@ class StageDagBuilder:
 
         # ---- broadcast: small build side replicated to every probe task
         if (node.kind in _BROADCASTABLE
-                and _estimate(node.right, self.catalog)
+                and derive(node.right, self.catalog).rows
                 <= self.broadcast_threshold):
             rid = self._close(rr, None)  # single buffer per task
             return lr.append(

@@ -18,6 +18,7 @@ A small, deterministic pass pipeline standing in for the reference's
 
 from __future__ import annotations
 
+import math
 from typing import Dict, List, Optional, Set, Tuple
 
 from ..expr import ir
@@ -26,20 +27,28 @@ from .logical import (
     Scan, Sort, Union, WindowNode,
 )
 from .planner import ir_conjoin
+from .stats import StatementStats, unique_keysets
 
 
-
-def optimize(plan: LogicalNode, catalog) -> LogicalNode:
+def optimize(plan: LogicalNode, catalog,
+             detail: Optional[dict] = None) -> LogicalNode:
+    """The optimized plan.  Its passes read the catalog's statistics
+    through one ``StatementStats``, made here and dropped on return;
+    ``detail``, where given (the ``optimize`` span's, with tracing on),
+    receives its counts."""
     plan = _extract_equis(plan)
     plan = _pushdown(plan, [])
-    plan = _reorder(plan, catalog)
+    stats = StatementStats(catalog, plan)
+    plan = _reorder(plan, stats)
     plan = _rewrite_approx_distinct(plan)
     plan = _rewrite_distinct(plan)
-    plan = _reduce_group_keys(plan, catalog)
+    plan = _reduce_group_keys(plan, stats)
     from .matching import CLEANUP_RULES, apply_rules
 
     plan = apply_rules(plan, CLEANUP_RULES)
     plan = _prune(plan, set(_needed_at_top(plan)))
+    if detail is not None:
+        detail.update(stats.detail())
     return plan
 
 
@@ -232,81 +241,84 @@ def _wrap(node: LogicalNode, conjuncts: List[ir.Expr]) -> LogicalNode:
 # ---------------------------------------------------------------- reorder
 
 
-def _estimate(node: LogicalNode, catalog, memo=None) -> float:
-    """Cardinality estimate driving join order and distribution choice.
-
-    Backed by the NDV/min-max/selectivity derivation in ``sql/stats.py``
-    (the cost/FilterStatsCalculator + JoinStatsRule analog); columns
-    without connector statistics fall back to the fixed coefficients the
-    pre-stats heuristic used.  ``memo`` (node-id keyed) lets a caller
-    amortise subtree derivations across many candidate plans — GOO
-    evaluates O(k^2) pair joins per round over the SAME components, so
-    per-component stats must derive once, not per candidate."""
-    from .stats import derive
-
-    return derive(node, catalog, memo).rows
-
-
-def _unique_keysets(node: LogicalNode, catalog) -> Set[frozenset]:
-    """Sets of symbols known unique in this relation's output.  Scan
-    uniqueness comes from connector statistics (Table.unique_keys — the
-    TpchMetadata/statistics analog), so TPC-DS and file/memory tables get
-    the same N:1 plans TPC-H does."""
-    if isinstance(node, Scan):
-        out = set()
-        try:
-            keys = getattr(catalog.table(node.table), "unique_keys", [])
-        except Exception:
-            keys = []
-        for key in keys:
-            if all(c in node.symbols for c in key):
-                out.add(frozenset(node.symbols[c] for c in key))
-        return out
-    if isinstance(node, (Filter, Sort, Limit)):
-        return _unique_keysets(node.children[0], catalog)
-    if isinstance(node, Project):
-        child = _unique_keysets(node.child, catalog)
-        passthrough = {s for s, e in node.outputs if isinstance(e, ir.ColumnRef)}
-        return {k for k in child if k <= passthrough}
-    if isinstance(node, Aggregate):
-        return {frozenset(node.group)} if node.group else set()
-    if isinstance(node, Join):
-        if node.kind in ("semi", "anti"):
-            return _unique_keysets(node.left, catalog)
-        if node.kind in ("inner", "left") and node.build_unique:
-            # N:1 join: output rows are a subset of (left) probe rows, so
-            # the probe side's unique keysets survive — this is what lets
-            # lineitem ⋈ (orders ⋈ customer) keep o_orderkey unique and
-            # take the expansion-free N:1 fast path (Q3/Q4/Q10 shape)
-            return _unique_keysets(node.left, catalog)
-        return set()
-    return set()
-
-
 #: exact (bushy, C_out-cost) join enumeration up to this many relations;
 #: wider FROM lists fall back to GOO.  8 relations = 255 subsets and a
-#: few thousand candidate splits — negligible planning latency with the
-#: shared stats memo.
+#: few thousand candidate splits.
 DP_JOIN_MAX = 8
 
 
-def _reorder(node: LogicalNode, catalog) -> LogicalNode:
+def _reorder(node: LogicalNode, stats: StatementStats) -> LogicalNode:
     if isinstance(node, Join) and node.kind in ("inner", "cross"):
         rels, edges, residuals = [], [], []
-        _flatten_inner(node, rels, edges, residuals, catalog)
+        _flatten_inner(node, rels, edges, residuals)
+        stats.relations = max(stats.relations, len(rels))
         if len(rels) > 2:
-            rels = [_reorder(r, catalog) for r in rels]
+            rels = [_reorder(r, stats) for r in rels]
             if len(rels) <= DP_JOIN_MAX:
-                tree = _dp_join(rels, edges, catalog)
+                tree = _dp_join(rels, edges, stats)
             else:
-                tree = _greedy_join(rels, edges, catalog)
-            tree = _orient_tree(tree, catalog)
+                tree = _greedy_join(rels, edges, stats)
+            tree = _orient_tree(tree, stats)
             return _wrap(tree, residuals)
     return _orient(node.with_children(
-        [_reorder(c, catalog) for c in node.children]), catalog)
+        [_reorder(c, stats) for c in node.children]), stats)
 
 
-def _dp_join(rels, edges, catalog) -> LogicalNode:
+class _Edges:
+    """A join cluster's equi edges over relation bitmasks.
+
+    Each side of an edge is held as the relations its columns lie in,
+    computed once: ``need``, the relations of the columns that lie in one,
+    and ``alternatives``, a mask for each column that lies in several.  A
+    side's columns lie in the union of the schemas of a set of relations
+    ``s`` exactly when ``s`` holds ``need`` and meets every alternative, so
+    ``between(s1, s2)``, the edges joining the two sets in edge order and
+    oriented ``s1`` side first, is a few mask tests an edge."""
+
+    def __init__(self, rels, edges):
+        owners: Dict[str, int] = {}
+        for i, r in enumerate(rels):
+            for sym in r.schema:
+                owners[sym] = owners.get(sym, 0) | 1 << i
+        self.edges = []
+        for a, b in edges:
+            sa, sb = _side(_refs(a), owners), _side(_refs(b), owners)
+            if sa is not None and sb is not None:  # else it joins no sets
+                self.edges.append((a, b) + sa + sb)
+
+    def between(self, s1: int, s2: int) -> List[Tuple[ir.Expr, ir.Expr]]:
+        eq = []
+        for a, b, na, xa, nb, xb in self.edges:
+            if not (na & ~s1 or nb & ~s2) and _meets(xa, s1, xb, s2):
+                eq.append((a, b))
+            elif not (nb & ~s1 or na & ~s2) and _meets(xb, s1, xa, s2):
+                eq.append((b, a))
+        return eq
+
+
+def _side(cols: Set[str], owners: Dict[str, int]):
+    """``(need, alternatives)`` of an edge side's columns (``_Edges``), or
+    None where a column lies in no relation."""
+    need, alternatives = 0, []
+    for c in cols:
+        m = owners.get(c, 0)
+        if not m:
+            return None
+        if m & (m - 1):
+            alternatives.append(m)
+        else:
+            need |= m
+    return need, tuple(alternatives)
+
+
+def _meets(x1, s1: int, x2, s2: int) -> bool:
+    """Whether ``s1`` meets every alternative of ``x1``, and ``s2`` of
+    ``x2``."""
+    return not (x1 or x2) or (all(m & s1 for m in x1)
+                              and all(m & s2 for m in x2))
+
+
+def _dp_join(rels, edges, stats: StatementStats) -> LogicalNode:
     """Exact join enumeration over subsets (memo-lite — the bounded
     analog of the reference's Memo + ReorderJoins exploration,
     ``iterative/Memo.java:64``, ``iterative/rule/ReorderJoins.java``).
@@ -317,68 +329,88 @@ def _dp_join(rels, edges, catalog) -> LogicalNode:
     objective; build/probe orientation and physical costs are applied
     afterwards by ``_orient_tree``).  Cross joins are admitted with a
     large penalty so disconnected FROM lists still plan, but never beat
-    a connected order.  All candidate stats ride ONE shared memo, so
-    each subtree derives once."""
-    n = len(rels)
-    memo: dict = {}
-    keep_alive: list = []
-    schemas = [set(r.schema) for r in rels]
+    a connected order.  The splits of ``S`` are tried in one fixed order
+    and a later one wins only if it costs strictly less, so ``best[S]`` is
+    the first split of least cost.
 
-    def edges_between(sa, sb):
-        eq = []
-        for a, b in edges:
-            ra, rb = _refs(a), _refs(b)
-            if ra <= sa and rb <= sb:
-                eq.append((a, b))
-            elif rb <= sa and ra <= sb:
-                eq.append((b, a))
-        return eq
-
-    # best[mask] = (cost, rows, tree, schema)
+    A candidate costs ``c1 + c2 + rows`` with ``rows >= 1``, so a split
+    whose children's costs ``c1 + c2`` (its ``lower``) are already at the
+    best so far cannot win, nor can one whose ``lower`` exceeds the cost of
+    some candidate (``bound``: the connected split of least ``lower``,
+    costed first); either is passed over before any derivation.  A cross
+    candidate's rows are ``max(r1 * r2, 1)``, known without one."""
+    between = _Edges(rels, edges).between
+    # best[mask] = (cost, rows, tree or, for a cross join, its two sides)
     best: dict = {}
     for i, r in enumerate(rels):
-        rows = _estimate(r, catalog, memo)
-        best[1 << i] = (0.0, rows, r, schemas[i])
+        best[1 << i] = (0.0, stats.rows(r), r)
 
-    full = (1 << n) - 1
+    full = (1 << len(rels)) - 1
     for mask in range(3, full + 1):
-        if mask & (mask - 1) == 0 or mask in best:
+        if mask & (mask - 1) == 0:
             continue
-        chosen = None
-        # enumerate proper sub-splits; canonical: S1 contains the lowest
-        # set bit so each unordered partition is tried once
+        # proper sub-splits (lower, S1) in their fixed order; canonical:
+        # S1 contains the lowest set bit so each unordered partition is
+        # tried once
         low = mask & -mask
+        splits = []
         sub = (mask - 1) & mask
         while sub:
-            s1, s2 = sub, mask ^ sub
-            if (s1 & low) and s1 in best and s2 in best:
-                c1, r1, t1, sch1 = best[s1]
-                c2, r2, t2, sch2 = best[s2]
-                eq = edges_between(sch1, sch2)
-                kind = "inner" if eq else "cross"
-                cand = Join(t1, t2, kind, eq, None)
-                keep_alive.append(cand)
-                rows = _estimate(cand, catalog, memo)
-                cost = c1 + c2 + rows
-                if not eq:
-                    cost += rows * 1e6  # cross-join penalty
-                if chosen is None or cost < chosen[0]:
-                    chosen = (cost, rows, cand, sch1 | sch2)
+            if sub & low:
+                splits.append((best[sub][0] + best[mask ^ sub][0], sub))
             sub = (sub - 1) & mask
+        stats.splits += len(splits)
+        bound, probed = math.inf, {}
+        for lower, s1 in sorted(splits):
+            eq = between(s1, mask ^ s1)
+            probed[s1] = _candidate(best, s1, mask ^ s1, eq, stats)
+            if eq:
+                bound = probed[s1][0]
+                break
+        chosen = None
+        for lower, s1 in splits:
+            if lower > bound or chosen is not None and lower >= chosen[0]:
+                continue
+            cand = probed.get(s1)
+            if cand is None:
+                cand = _candidate(best, s1, mask ^ s1, between(s1, mask ^ s1),
+                                  stats)
+            if chosen is None or cand[0] < chosen[0]:
+                chosen = cand
+        if isinstance(chosen[2], tuple):
+            chosen = (chosen[0], chosen[1],
+                      Join(*chosen[2], "cross", [], None))
         best[mask] = chosen
     return best[full][2]
 
 
-def _orient_tree(node: LogicalNode, catalog) -> LogicalNode:
+def _candidate(best, s1: int, s2: int, eq, stats: StatementStats):
+    """``(cost, rows, tree)`` of joining ``best[s1]`` to ``best[s2]`` on
+    ``eq``; for a cross join (no ``eq``) the tree's two sides, its rows
+    computed as its derivation would."""
+    c1, r1, t1 = best[s1]
+    c2, r2, t2 = best[s2]
+    if eq:
+        cand = Join(t1, t2, "inner", eq, None)
+        stats.costed += 1
+        rows = stats.rows(cand)
+        return c1 + c2 + rows, rows, cand
+    rows = max(r1 * r2, 1.0)
+    cost = c1 + c2 + rows
+    cost += rows * 1e6  # cross-join penalty
+    return cost, rows, (t1, t2)
+
+
+def _orient_tree(node: LogicalNode, stats: StatementStats) -> LogicalNode:
     if isinstance(node, Join):
-        node = Join(_orient_tree(node.left, catalog),
-                    _orient_tree(node.right, catalog),
+        node = Join(_orient_tree(node.left, stats),
+                    _orient_tree(node.right, stats),
                     node.kind, node.equis, node.residual, node.build_unique)
-        return _orient(node, catalog)
+        return _orient(node, stats)
     return node
 
 
-def _orient(node: LogicalNode, catalog) -> LogicalNode:
+def _orient(node: LogicalNode, stats: StatementStats) -> LogicalNode:
     """Choose the build (right) side; mark unique builds.
 
     A provably-unique (PK) build side enables the expansion-free probe
@@ -390,14 +422,14 @@ def _orient(node: LogicalNode, catalog) -> LogicalNode:
     j = node
 
     def _unique_as_build(side) -> bool:
-        uniq = _unique_keysets(side, catalog)
+        uniq = unique_keysets(side, stats)
         syms = frozenset(
             (b if side is j.right else a).name for a, b in j.equis
             if isinstance((b if side is j.right else a), ir.ColumnRef))
         return any(k <= syms for k in uniq)
 
     if j.kind == "inner" and j.equis:
-        le, re = _estimate(j.left, catalog), _estimate(j.right, catalog)
+        le, re = stats.rows(j.left), stats.rows(j.right)
         u_right = _unique_as_build(j.right)
         u_left = _unique_as_build(j.left)
         # physical cost per orientation: build-side sort + probe work.
@@ -411,7 +443,7 @@ def _orient(node: LogicalNode, catalog) -> LogicalNode:
             j = Join(j.right, j.left, "inner",
                      [(b, a) for a, b in j.equis], j.residual, j.build_unique)
     if j.kind in ("inner", "left", "semi", "anti") and j.equis:
-        uniq = _unique_keysets(j.right, catalog)
+        uniq = unique_keysets(j.right, stats)
         build_syms = frozenset(
             b.name for _, b in j.equis if isinstance(b, ir.ColumnRef))
         unique = any(k <= build_syms for k in uniq)
@@ -420,23 +452,22 @@ def _orient(node: LogicalNode, catalog) -> LogicalNode:
     return j
 
 
-def _flatten_inner(node: LogicalNode, rels, edges, residuals, catalog):
+def _flatten_inner(node: LogicalNode, rels, edges, residuals):
     # cross joins flatten too: a FROM-list pair without a direct predicate
     # (Q2's part x supplier) must not act as a reorder barrier — the greedy
     # rebuild connects both through their shared fact table instead
     if isinstance(node, Join) and node.kind in ("inner", "cross"):
         if node.residual is not None:
             residuals.extend(_split_ir_conjuncts(node.residual))
-        _flatten_inner(node.left, rels, edges, residuals, catalog)
-        nleft = len(rels)
-        _flatten_inner(node.right, rels, edges, residuals, catalog)
+        _flatten_inner(node.left, rels, edges, residuals)
+        _flatten_inner(node.right, rels, edges, residuals)
         for a, b in node.equis:
             edges.append((a, b))
     else:
         rels.append(node)
 
 
-def _greedy_join(rels, edges, catalog) -> LogicalNode:
+def _greedy_join(rels, edges, stats: StatementStats) -> LogicalNode:
     """Greedy Operand Ordering (GOO): repeatedly merge the PAIR of
     components whose join result is smallest (connected pairs first).
     Unlike the previous single-chain greedy — which started from the
@@ -444,88 +475,35 @@ def _greedy_join(rels, edges, catalog) -> LogicalNode:
     q9 into nation→supplier→lineitem before any selective join — GOO
     builds bushy trees, so lineitem⋈(filtered part) fires first and the
     whole downstream pipeline shrinks.  The exploration-free core of
-    ``iterative/rule/ReorderJoins.java``."""
-    comps = [(r, set(r.schema)) for r in rels]
-    # shared stats memo: component subtrees are stable objects across the
-    # whole merge loop, so each derives once (ADVICE r4: the unmemoized
-    # loop re-derived full subtrees O(k^3) times on wide FROM lists)
-    memo: dict = {}
-    # the memo keys on id(node): keep every candidate Join alive for the
-    # loop's duration so a freed id can't be recycled onto a new node
-    keep_alive: list = []
-
-    def edges_between(sa, sb):
-        eq = []
-        for a, b in edges:
-            ra, rb = _refs(a), _refs(b)
-            if ra <= sa and rb <= sb:
-                eq.append((a, b))
-            elif rb <= sa and ra <= sb:
-                eq.append((b, a))
-        return eq
-
+    ``iterative/rule/ReorderJoins.java``.  A cross pair's rows are
+    ``max(r1 * r2, 1)``, known without a derivation, and it cannot win
+    once a connected pair has been seen."""
+    between = _Edges(rels, edges).between
+    comps = [(r, 1 << i) for i, r in enumerate(rels)]
     while len(comps) > 1:
         best = None
         for i in range(len(comps)):
             for j in range(i + 1, len(comps)):
-                eq = edges_between(comps[i][1], comps[j][1])
-                kind = "inner" if eq else "cross"
-                cand = Join(comps[i][0], comps[j][0], kind, eq, None)
-                keep_alive.append(cand)
-                est = _estimate(cand, catalog, memo)
-                score = (0 if eq else 1, est)
+                stats.splits += 1
+                eq = between(comps[i][1], comps[j][1])
+                if eq:
+                    cand = Join(comps[i][0], comps[j][0], "inner", eq, None)
+                    stats.costed += 1
+                    score = (0, stats.rows(cand))
+                elif best is not None and best[0][0] == 0:
+                    continue
+                else:
+                    score = (1, max(stats.rows(comps[i][0])
+                                    * stats.rows(comps[j][0]), 1.0))
                 if best is None or score < best[0]:
                     best = (score, i, j, eq)
         _, i, j, eq = best
         kind = "inner" if eq else "cross"
         tree = Join(comps[i][0], comps[j][0], kind, eq, None)
-        schema = comps[i][1] | comps[j][1]
+        mask = comps[i][1] | comps[j][1]
         comps = [c for k, c in enumerate(comps) if k not in (i, j)]
-        comps.append((tree, schema))
+        comps.append((tree, mask))
     return comps[0][0]
-
-
-def _greedy_join_chain(rels, edges, catalog) -> LogicalNode:
-    remaining = list(range(len(rels)))
-    est = [_estimate(r, catalog) for r in rels]
-    schemas = [set(r.schema) for r in rels]
-
-    def edge_between(in_set: Set[int], j: int):
-        out = []
-        for a, b in edges:
-            ra, rb = _refs(a), _refs(b)
-            in_schema = set().union(*(schemas[i] for i in in_set))
-            if ra <= in_schema and rb <= schemas[j]:
-                out.append((a, b))
-            elif rb <= in_schema and ra <= schemas[j]:
-                out.append((b, a))
-        return out
-
-    start = min(remaining, key=lambda i: est[i])
-    joined = {start}
-    remaining.remove(start)
-    tree = rels[start]
-    while remaining:
-        candidates = [(i, edge_between(joined, i)) for i in remaining]
-        connected = [(i, e) for i, e in candidates if e]
-        pool = connected if connected else candidates
-
-        # pick the candidate whose RESULTING join is smallest (the
-        # CostComparator analog — cost/CostCalculatorUsingExchanges +
-        # JoinStatsRule): joining the smallest relation can still blow up
-        # through a low-NDV edge (Q5's customer⋈supplier on nationkey =
-        # 60M pairs), which fits host RAM but crowds device memory
-        def result_rows(t):
-            i, eq = t
-            kind = "inner" if eq else "cross"
-            return _estimate(Join(tree, rels[i], kind, eq, None), catalog)
-
-        i, eq = min(pool, key=result_rows)
-        kind = "inner" if eq else "cross"
-        tree = Join(tree, rels[i], kind, eq, None)
-        joined.add(i)
-        remaining.remove(i)
-    return tree
 
 
 # ------------------------------------------------ group-key FD reduction

@@ -13,7 +13,7 @@ column has no statistics, so stat-less catalogs keep their old plans.
 from __future__ import annotations
 
 from dataclasses import dataclass, replace
-from typing import Dict, Optional
+from typing import Dict, Optional, Set
 
 from ..expr import ir
 from . import logical as L
@@ -133,15 +133,170 @@ def _selectivity(pred: ir.Expr, stats: PlanStats):
 
 def derive(node: L.LogicalNode, catalog,
            memo: Optional[dict] = None) -> PlanStats:
-    """Bottom-up statistics for a plan subtree (memoized by node id)."""
+    """Bottom-up statistics for a plan subtree, memoised in ``memo`` by
+    node id.  The memo holds each node beside its statistics, so no id it
+    keys is recycled onto another node while the memo lives."""
     if memo is None:
         memo = {}
-    key = id(node)
-    if key in memo:
-        return memo[key]
+    hit = memo.get(id(node))
+    if hit is not None:
+        return hit[1]
     out = _derive(node, catalog, memo)
-    memo[key] = out
+    memo[id(node)] = (node, out)
     return out
+
+
+class StatementStats:
+    """The statistics one ``optimize`` call reads, and its join search's
+    counts.
+
+    It stands in for the catalog in the optimizer's passes: ``table(name)``
+    gives a view whose ``num_rows`` and ``column_stats(column)`` read the
+    catalog once each (Trino's ``CachingStatsProvider``), and ``rows(node)``
+    derives through one memo for the whole call.  Of a table's columns it
+    reads only those ``_looked_up`` finds in ``plan``, the plan whose
+    joins the call orders: a derivation over that plan's nodes and
+    expressions reads the statistics of no other column.  Each ``optimize``
+    call makes its own and drops it on return: nothing outlives the
+    statement, so a write between two statements is seen by the next
+    one."""
+
+    def __init__(self, catalog, plan: L.LogicalNode):
+        self.catalog = catalog
+        self.memo: dict = {}
+        self._plan = plan
+        self._columns: Optional[Dict[str, Set[str]]] = None
+        self._tables: Dict[str, "_TableStats"] = {}
+        # the optimize span's detail: the largest join cluster's relations,
+        # the join splits visited, the candidates whose statistics were
+        # derived, and the catalog's num_rows / column_stats reads
+        self.relations = self.splits = self.costed = self.reads = 0
+
+    def table(self, name: str) -> "_TableStats":
+        view = self._tables.get(name)
+        if view is None:
+            view = self._tables[name] = _TableStats(
+                self.catalog.table(name), self, name)
+        return view
+
+    def columns(self, table: str) -> Set[str]:
+        """The columns of ``table`` whose statistics this call reads."""
+        if self._columns is None:
+            self._columns = _looked_up(self._plan)
+        return self._columns.get(table, set())
+
+    def rows(self, node: L.LogicalNode) -> float:
+        return derive(node, self, self.memo).rows
+
+    def detail(self) -> dict:
+        return {"relations": self.relations, "splits": self.splits,
+                "costed": self.costed, "stats_reads": self.reads}
+
+
+def _looked_up(plan: L.LogicalNode) -> Dict[str, Set[str]]:
+    """By table, the scanned columns whose symbol a filter, a join
+    condition or a projection of ``plan`` names, or an aggregate groups
+    by: ``_derive`` looks up the statistics of no other symbol, in this
+    plan or in one rebuilt from its nodes and expressions."""
+    symbols: Set[str] = set()
+    scans = []
+    stack = [plan]
+    while stack:
+        node = stack.pop()
+        if isinstance(node, L.Scan):
+            scans.append(node)
+        elif isinstance(node, L.Filter):
+            symbols |= ir.referenced_columns(node.predicate)
+        elif isinstance(node, L.Project):
+            for _, e in node.outputs:
+                symbols |= ir.referenced_columns(e)
+        elif isinstance(node, L.Join):
+            for a, b in node.equis:
+                symbols |= ir.referenced_columns(a)
+                symbols |= ir.referenced_columns(b)
+            if node.residual is not None:  # a Filter once reordered
+                symbols |= ir.referenced_columns(node.residual)
+        elif isinstance(node, L.Aggregate):
+            symbols.update(node.group)
+        stack.extend(node.children)
+    out: Dict[str, Set[str]] = {}
+    for scan in scans:
+        out.setdefault(scan.table, set()).update(
+            c for c, sym in scan.symbols.items() if sym in symbols)
+    return out
+
+
+_UNREAD = object()
+
+
+class _TableStats:
+    """A table as one ``StatementStats`` reads it: each statistic from the
+    catalog once, none for a column outside its ``columns``, every other
+    attribute the table's own."""
+
+    def __init__(self, table, owner: StatementStats, name: str):
+        self._table, self._owner, self._name = table, owner, name
+        self._rows = _UNREAD
+        self._cols: dict = {}
+
+    @property
+    def num_rows(self):
+        if self._rows is _UNREAD:
+            self._rows = self._table.num_rows
+            self._owner.reads += 1
+        return self._rows
+
+    def column_stats(self, column: str):
+        cs = self._cols.get(column, _UNREAD)
+        if cs is _UNREAD:
+            if column not in self._owner.columns(self._name):
+                return None
+            getter = getattr(self._table, "column_stats", None)
+            if getter is None:
+                return None
+            cs = self._cols[column] = getter(column)
+            self._owner.reads += 1
+        return cs
+
+    def __getattr__(self, name):
+        return getattr(self._table, name)
+
+
+def unique_keysets(node: L.LogicalNode, catalog) -> Set[frozenset]:
+    """Sets of symbols known unique in this relation's output.  Scan
+    uniqueness comes from connector statistics (Table.unique_keys — the
+    TpchMetadata/statistics analog), so TPC-DS and file/memory tables get
+    the same N:1 plans TPC-H does."""
+    if isinstance(node, L.Scan):
+        out = set()
+        try:
+            keys = getattr(catalog.table(node.table), "unique_keys", [])
+        except Exception:
+            keys = []
+        for key in keys:
+            if all(c in node.symbols for c in key):
+                out.add(frozenset(node.symbols[c] for c in key))
+        return out
+    if isinstance(node, (L.Filter, L.Sort, L.Limit)):
+        return unique_keysets(node.children[0], catalog)
+    if isinstance(node, L.Project):
+        child = unique_keysets(node.child, catalog)
+        passthrough = {s for s, e in node.outputs
+                       if isinstance(e, ir.ColumnRef)}
+        return {k for k in child if k <= passthrough}
+    if isinstance(node, L.Aggregate):
+        return {frozenset(node.group)} if node.group else set()
+    if isinstance(node, L.Join):
+        if node.kind in ("semi", "anti"):
+            return unique_keysets(node.left, catalog)
+        if node.kind in ("inner", "left") and node.build_unique:
+            # N:1 join: output rows are a subset of (left) probe rows, so
+            # the probe side's unique keysets survive — this is what lets
+            # lineitem ⋈ (orders ⋈ customer) keep o_orderkey unique and
+            # take the expansion-free N:1 fast path (Q3/Q4/Q10 shape)
+            return unique_keysets(node.left, catalog)
+        return set()
+    return set()
 
 
 def _scan_stats(node: L.Scan, catalog) -> PlanStats:
@@ -222,11 +377,9 @@ def _derive(node: L.LogicalNode, catalog, memo) -> PlanStats:
                     b.name for _, b in node.equis
                     if isinstance(b, ir.ColumnRef))
                 if build_syms:
-                    from .optimizer import _unique_keysets
-
                     unique = any(k <= build_syms
-                                 for k in _unique_keysets(node.right,
-                                                          catalog))
+                                 for k in unique_keysets(node.right,
+                                                         catalog))
             if unique:
                 # match fraction = surviving share of the build's key
                 # domain; keys are unique, so the pre-filter relation's
