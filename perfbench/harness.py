@@ -1,17 +1,21 @@
-"""One run of one cell: set-up, a closed-loop window of queries through
-``Engine.sql`` and ``RecordBatch.to_pylist``, then the comparison of every
+"""One run of one cell: set-up, a window of closed-loop client sessions
+sending queries through the mix's driver, then the comparison of every
 answer with the plain reference.
 
 Everything that belongs to a cell is found by name: the cell in
 ``BENCHMARK.json``, its configuration in ``perfbench/configs/<config>.json``,
-its mix in ``perfbench/mixes/<traffic>.json``, the mix's templates in
-``perfbench/reference/<suite>_<template>.py`` and each per-layer metric's
-reader in ``perfbench/metrics/<metric>.py``.
+its mix in ``perfbench/mixes/<traffic>.json``, the mix's driver in
+``perfbench/drivers/<driver>.py`` (``engine``, ``Engine.sql`` and
+``RecordBatch.to_pylist`` in this process, where the mix names none), the
+mix's templates in ``perfbench/reference/<suite>_<template>.py`` and each
+per-layer metric's reader in ``perfbench/metrics/<metric>.py``.  The harness
+keeps the sessions, the records, the end-to-end metrics, the comparison and
+the look for forbidden modules; the driver owns what runs where.
 """
 
 from __future__ import annotations
 
-import gc
+import contextlib
 import importlib
 import json
 import math
@@ -19,13 +23,16 @@ import os
 import statistics
 import subprocess
 import sys
+import threading
 import time
-from typing import Dict, List, Optional
+from concurrent.futures import ThreadPoolExecutor
+from typing import Dict, List, NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from .data.store import CACHE, Store
+from .prestart import DEVICE
 from .traffic import Traffic
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -39,7 +46,9 @@ PROFILE_LEAD = 32
 
 
 def log(**kv) -> None:
-    print(json.dumps(kv, default=str), file=sys.stderr, flush=True)
+    # one write a line: sessions log from their threads
+    sys.stderr.write(json.dumps(kv, default=str) + "\n")
+    sys.stderr.flush()
 
 
 def load_json(path: str) -> dict:
@@ -120,11 +129,13 @@ class Trace:
     benchmark's host span that was open.
 
     The profiler traces the device alone, so the host runs the traced
-    queries at close to its untraced speed; the window's wall and the spans
-    are the host's clock (``spans``: ``(start_ns, end_ns, name)`` of
-    ``time.perf_counter``).  The lead spin kernels set the host's clock
-    onto the trace's: the last of them ends just before the synchronize
-    that returned at ``sync_ns``."""
+    queries at close to its untraced speed; the window's wall, from the
+    first span's start to the last one's end, and the spans are the host's
+    clock (``spans``: ``(start_ns, end_ns, name)`` of
+    ``time.perf_counter``, in any order: the sessions' spans overlap).  The
+    lead spin kernels set the host's clock onto the trace's: the last of
+    them ends just before the synchronize that returned at ``sync_ns``
+    (``CLOCK_MONOTONIC``, one clock for every process of the host)."""
 
     def __init__(self, prof, queries: int, spans: List[tuple],
                  sync_ns: int):
@@ -140,8 +151,10 @@ class Trace:
                 device.append(ev)
         busy = busy_intervals([(ev.time_range.start, ev.time_range.end)
                                for ev in device])
+        first = min(s[0] for s in spans)
+        last = max(s[1] for s in spans)
         self.queries = queries
-        self.window_s = (spans[-1][1] - spans[0][0]) / 1e9
+        self.window_s = (last - first) / 1e9
         self.busy_s = sum(b - a for a, b in busy) / 1e6
         self.kernels = sum(1 for ev in device
                            if not ev.name.startswith(("Memcpy", "Memset")))
@@ -156,8 +169,8 @@ class Trace:
         offset = None if spin_end is None else sync_ns - spin_end * 1e3
         self.aligned = offset is not None
         if busy and offset is not None:
-            lo = min(busy[0][0], (spans[0][0] - offset) / 1e3)
-            hi = max(busy[-1][1], (spans[-1][1] - offset) / 1e3)
+            lo = min(busy[0][0], (first - offset) / 1e3)
+            hi = max(busy[-1][1], (last - offset) / 1e3)
         elif busy:
             lo, hi = busy[0][0], busy[-1][1]
         else:
@@ -171,7 +184,7 @@ class Trace:
             for a, b in gaps[:10]]
         # first kernel after the first query's start: the alignment's check
         self.lead_ms = None if offset is None or not busy else \
-            (busy[0][0] * 1e3 + offset - spans[0][0]) / 1e6
+            (busy[0][0] * 1e3 + offset - first) / 1e6
 
     @staticmethod
     def _label(spans, t) -> str:
@@ -181,27 +194,59 @@ class Trace:
 
 class Run:
     """What a per-layer metric's reader may read: the trace, the queries
-    it covered, the engine (still alive), the window's texts, the column
+    it covered, the driver's in-process engine (still alive; None where the
+    program runs in other processes), the window's texts, the records of
+    the traced run's queries that the profile did not cover, the column
     store, the device's name and the table of peaks."""
 
     def __init__(self, **kv):
         self.__dict__.update(kv)
 
 
+class Setting:
+    """What a driver is given: the device, the configuration, the column
+    cache, the mix, the number of sessions, the process ``prestart``
+    started for it (or None), and before its set-up the column store, the
+    traffic and the columns the mix reads by table."""
+
+    def __init__(self, **kv):
+        self.__dict__.update(kv)
+
+
+class Record(NamedTuple):
+    """One query of the window: its instance, its latency (s), the key of
+    its answer in ``Answers`` (None if the query raised), its end on the
+    host's clock (s), its session, and the numbers the program reported
+    with it (None where it reports none)."""
+    inst: object
+    latency: float
+    answer: Optional[tuple]
+    end: float
+    session: int
+    numbers: Optional[dict]
+
+
+class ForbiddenModules(RuntimeError):
+    """A process of the run loaded JAX or the JAX package, or stopped
+    without saying which of them it had loaded."""
+
+
+def driver_of(mix: dict, setting: Setting):
+    """The mix's driver (``perfbench/drivers/<name>.py``), started."""
+    name = mix.get("driver", "engine")
+    return importlib.import_module(
+        f"{__package__}.drivers.{name}").Driver(setting)
+
+
 def run(workload: str, seed: int, seconds: float, trace: bool,
         device: str = "cuda", t_start: float = None,
         config_override: Optional[dict] = None,
-        data_cache: Optional[str] = CACHE) -> dict:
+        data_cache: Optional[str] = CACHE, early=None) -> dict:
     """One run of ``workload``; returns the result line's object.  The
     caller checks for the card first.  ``config_override`` and
-    ``data_cache`` let a test run a cell at a small scale factor."""
+    ``data_cache`` let a test run a cell at a small scale factor; ``early``
+    is what ``prestart`` started for the cell's driver."""
     t_start = time.perf_counter() if t_start is None else t_start
-    from presto1_tpu_torch.exec.engine import Engine
-    from presto1_tpu_torch.exec.session import Session
-
-    from .port_catalog import BenchCatalog
-
-    t_import = time.perf_counter()
     bench = load_json(os.path.join(ROOT, "BENCHMARK.json"))
     cell = cell_of(bench, workload)
     entry = next(c for c in bench["configs"] if c["name"] == cell["config"])
@@ -209,74 +254,82 @@ def run(workload: str, seed: int, seconds: float, trace: bool,
     config.update(config_override or {})
     config["name"] = cell["config"]
     mix = load_json(os.path.join(HERE, "mixes", cell["traffic"] + ".json"))
+    sessions = mix.get("sessions", 1)
+    if sessions < 1 or mix["trace_queries"] % sessions:
+        raise ValueError(f"mix {cell['traffic']!r}: trace_queries "
+                         f"{mix['trace_queries']} over {sessions} sessions")
+    if config.get("query_streams", sessions) != sessions:
+        raise ValueError(f"mix {cell['traffic']!r}: {sessions} sessions, "
+                         f"configuration {cell['config']!r}: "
+                         f"{config['query_streams']} query streams")
     dev = torch.device(device)
+    setting = Setting(device=dev, config=config, cache=data_cache, mix=mix,
+                      sessions=sessions, started=early)
+    driver = driver_of(mix, setting)
+    try:
+        return _run(driver, setting, bench, cell, seed, seconds, trace,
+                    t_start)
+    except BaseException:
+        # the run has failed already: its processes stop all the same
+        with contextlib.suppress(ForbiddenModules):
+            driver.close()
+        raise
 
-    store = Store(config, cache=data_cache)
+
+def _run(driver, setting: Setting, bench: dict, cell: dict, seed: int,
+         seconds: float, trace: bool, t_start: float) -> dict:
+    t_import = time.perf_counter()
+    config, mix, dev = setting.config, setting.mix, setting.device
+    store = Store(config, cache=setting.cache)
     traffic = Traffic(mix, config["suite"], seed)
     columns = traffic.columns()
     tables = {t: {c: store.column(t, c) for c in cols}
               for t, cols in columns.items()}
+    setting.store, setting.traffic, setting.columns = store, traffic, columns
     t_data = time.perf_counter()
 
-    catalog = BenchCatalog(store, device=dev)
-    for t, cols in columns.items():
-        for c in cols:
-            catalog.table(t).column(c)
-    sync(dev)
-    t_upload = time.perf_counter()
-
-    session = Session()
-    for k, v in mix["session"].items():
-        session.set(k, v)
-    engine = Engine(catalog, session=session, device=dev)
-    for inst in traffic.instances:
-        engine.sql(inst.text).to_pylist()
-    t_compile = time.perf_counter()
-    for inst in traffic.instances:
-        engine.sql(inst.text).to_pylist()
-    sync(dev)
+    phases = driver.setup()
     t_warm = time.perf_counter()
     setup = {"import_s": t_import - t_start, "data_s": t_data - t_import,
-             "columns_generated": store.generated,
-             "upload_s": t_upload - t_data, "compile_s": t_compile - t_upload,
-             "warm_s": t_warm - t_compile, "texts": len(traffic.instances),
-             "setup_s": t_warm - t_start}
+             "columns_generated": store.generated, **phases,
+             "texts": len(traffic.instances), "setup_s": t_warm - t_start}
     log(setup=setup)
-    if dev.type == "cuda":
-        torch.cuda.reset_peak_memory_stats(dev)
 
-    records, answers, traced = window(engine, traffic, seconds, trace, mix,
+    records, answers, traced = window(driver, traffic, seconds, trace, mix,
                                       dev)
-    peak = int(torch.cuda.max_memory_allocated(dev)) \
-        if dev.type == "cuda" else 0
-
-    kind = torch.cuda.get_device_name(dev) if dev.type == "cuda" else \
-        dev.type
+    dev_info = driver.device()
     device_out = {"platform": "gpu" if dev.type == "cuda" else dev.type,
-                  "kind": kind, "count": 1, "memory_peak_bytes": peak}
+                  "kind": dev_info["kind"], "count": 1,
+                  "memory_peak_bytes": dev_info["memory_peak_bytes"]}
     layer: Dict[str, dict] = {}
     breakdown = None
     if traced:
         tr = traced["trace"]
+        n = tr.queries
         device_out.update(busy_s=tr.busy_s, window_s=tr.window_s)
         breakdown = {"device_ops": [list(x) for x in tr.device_ops],
                      "idle_gaps": [list(x) for x in tr.idle_gaps]}
-        ctx = Run(trace=tr, traced=traced["instances"], engine=engine,
-                  texts=sorted({r[0].text for r in records}),
-                  store=store, device_kind=kind,
+        ctx = Run(trace=tr, traced=traced["instances"], engine=driver.engine,
+                  texts=sorted({r.inst.text for r in records}),
+                  untraced=records[n:], store=store,
+                  device_kind=dev_info["kind"],
                   peaks=load_json(os.path.join(HERE, "peaks.json")))
+        if hasattr(driver, "program_trace"):
+            # the program runs in a process of the driver's: its own trace
+            # is replayed there (``metrics/_program_trace.py`` reads this)
+            ctx._program_trace = driver.program_trace(traced["instances"])
         for m in metrics_of(bench, cell, "per_layer"):
             value = importlib.import_module(
                 f"{__package__}.metrics.{m['name']}").read(ctx)
             if value is not None:
                 layer[m["name"]] = {"value": value, "unit": m["unit"]}
+        del ctx
         # what tracing costs the host: each template's mean latency traced
         # over its mean in the untraced rest of the window
-        n = tr.queries
         slow = {}
         for name in traffic.templates:
-            a = [r[1] for r in records[:n] if r[0].name == name]
-            b = [r[1] for r in records[n:] if r[0].name == name]
+            a = [r.latency for r in records[:n] if r.inst.name == name]
+            b = [r.latency for r in records[n:] if r.inst.name == name]
             if a and b:
                 slow[name] = statistics.fmean(a) / statistics.fmean(b)
         log(trace={"queries": tr.queries, "kernels": tr.kernels,
@@ -284,15 +337,13 @@ def run(workload: str, seed: int, seconds: float, trace: bool,
                    "window_s": tr.window_s, "aligned": tr.aligned,
                    "first_kernel_after_ms": tr.lead_ms,
                    "traced_over_untraced_latency": slow})
-        if dev.type == "cuda":
-            log(copy_rate_gb_s=copy_rate(dev))
+        log(**driver.notes())
     log(card=card(dev))
 
     # the program's state goes before the reference runs
-    del engine, catalog
-    gc.collect()
-    if dev.type == "cuda":
-        torch.cuda.empty_cache()
+    found = driver.close()
+    if found:
+        raise ForbiddenModules(f"loaded in a process of the driver: {found}")
 
     limits = config["limits"]
     t_ref = time.perf_counter()
@@ -301,13 +352,23 @@ def run(workload: str, seed: int, seconds: float, trace: bool,
         checked_answers=verdict["checked_answers"],
         distinct_answers=sum(map(len, answers.distinct.values())))
     by_template: Dict[str, list] = {}
-    for inst, lat, _, _ in records:
-        by_template.setdefault(inst.name, []).append(lat * 1e3)
+    for r in records:
+        by_template.setdefault(r.inst.name, []).append(r.latency * 1e3)
     log(latency_ms={n: {"queries": len(v), "median": statistics.median(v),
                         "p95": float(np.percentile(v, 95)), "max": max(v)}
                     for n, v in by_template.items()})
+    numbers = [r.numbers for r in records if r.numbers]
+    if numbers:
+        # what the program reported with its answers, the mean a query
+        log(numbers={k: statistics.fmean(x[k] for x in numbers)
+                     for k in numbers[0]})
+    log(sessions={"queries": [sum(1 for r in records if r.session == k)
+                              for k in range(setting.sessions)],
+                  "right": [sum(1 for r in records if r.session == k
+                                and r.answer in verdict["right"])
+                            for k in range(setting.sessions)]})
     attempted = len(records)
-    failed = sum(1 for r in records if r[2] is None)
+    failed = sum(1 for r in records if r.answer is None)
     checks = {
         "failed": {"value": failed, "limit": 0},
         "wrong_answers": {"value": verdict["wrong"],
@@ -322,10 +383,12 @@ def run(workload: str, seed: int, seconds: float, trace: bool,
     if trace:
         out["metrics"] = layer
     else:
-        lat = [r[1] for r in records]
-        good = sum(1 for r in records if r[2] in verdict["right"])
-        span = records[-1][3] - records[0][3] + records[0][1] \
-            if records else math.nan
+        lat = [r.latency for r in records]
+        good = sum(1 for r in records if r.answer in verdict["right"])
+        # from the first query's start to the last one's end, over all
+        # sessions
+        span = max(r.end for r in records) - min(
+            r.end - r.latency for r in records) if records else math.nan
         values = {
             "queries_per_s": good / span,
             "geomean_ms": math.exp(statistics.fmean(
@@ -348,58 +411,79 @@ def sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
-def window(engine, traffic: Traffic, seconds: float, trace: bool, mix: dict,
-           dev: torch.device):
-    """The closed loop: each query is sent when the last answer is in the
-    host's list.  Records (instance, latency s, the answer's key in
-    ``answers`` or None if the query raised, end time).  A traced run
-    profiles the device over its first ``trace_queries`` queries, keeping
-    host spans around ``Engine.sql`` and ``to_pylist``, and goes on
-    untraced to the window's end."""
-    from torch.profiler import ProfilerActivity, profile
+def in_sessions(n: int, fn) -> None:
+    """``fn(k)`` for each session k, each in a thread of its own (one
+    session runs in the calling thread)."""
+    if n == 1:
+        fn(0)
+        return
+    with ThreadPoolExecutor(max_workers=n) as pool:
+        for f in [pool.submit(fn, k) for k in range(n)]:
+            f.result()
 
-    seq = traffic.sequence()
-    records = []
+
+def window(driver, traffic: Traffic, seconds: float, trace: bool, mix: dict,
+           dev: torch.device):
+    """The closed loop of each session: each query is sent when the
+    session's last answer is in the host's list.  Returns the records of
+    every session, merged by end time, the answers and the trace.  A traced
+    run profiles the device over its first ``trace_queries`` queries (each
+    session's share of them, the sessions waiting for each other at its
+    end), keeping host spans around the parts of each query the driver
+    names, and goes on untraced to the window's end."""
+    n_sessions = mix.get("sessions", 1)
+    seqs = [traffic.sequence(k) for k in range(n_sessions)]
+    logs: List[List[Record]] = [[] for _ in range(n_sessions)]
     answers = Answers()
     traced = {}
 
-    def one(inst, spans=None):
+    def one(k, inst, spans=None):
+        parts = None if spans is None else []
         t0 = time.perf_counter()
         try:
-            if spans is None:
-                rows = engine.sql(inst.text).to_pylist()
-            else:
-                out = engine.sql(inst.text)
-                t_sql = time.perf_counter()
-                rows = out.to_pylist()
+            reply = driver.query(k, inst.text, parts)
         except Exception as e:  # a query that fails counts as failed
             log(query_failed=inst.name, params=inst.params, error=repr(e))
-            rows = None
+            reply = None
         t1 = time.perf_counter()
-        records.append((inst, t1 - t0, answers.add(inst.index, rows), t1))
+        rows, numbers, times = (None, None, None) if reply is None else \
+            driver.answer(reply)
+        if times is not None:
+            # the query as the driver's client process timed it
+            t0, t1 = times
+        logs[k].append(Record(inst, t1 - t0, answers.add(inst.index, rows),
+                              t1, k, numbers))
         if spans is not None:
-            t_sql = t1 if rows is None else t_sql
-            spans += [(round(t0 * 1e9), round(t_sql * 1e9),
-                       f"sql:{inst.name}"),
-                      (round(t_sql * 1e9), round(t1 * 1e9),
-                       f"to_host:{inst.name}")]
+            # the driver's parts of the query: its first from the start,
+            # each later one from the moment the driver marked
+            starts = [(driver.PART, t0), *parts]
+            ends = [t for _, t in parts] + [t1]
+            spans += [(round(a * 1e9), round(b * 1e9), f"{name}:{inst.name}")
+                      for (name, a), b in zip(starts, ends)]
 
     t_end = time.perf_counter() + seconds
     if trace and dev.type == "cuda":
         n = mix["trace_queries"]
-        spans: List[tuple] = []
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(PROFILE_LEAD):
-                torch.cuda._sleep(1)
-            torch.cuda.synchronize(dev)
-            sync_ns = round(time.perf_counter() * 1e9)
-            insts = [next(seq) for _ in range(n)]
-            for inst in insts:
-                one(inst, spans)
-        traced = {"trace": Trace(prof, n, spans, sync_ns),
-                  "instances": insts}
-    while time.perf_counter() < t_end:
-        one(next(seq))
+        spans: List[List[tuple]] = [[] for _ in range(n_sessions)]
+
+        def profiled(k):
+            for _ in range(n // n_sessions):
+                one(k, next(seqs[k]), spans[k])
+
+        sync_ns = driver.start_profile()
+        in_sessions(n_sessions, profiled)
+        prof = driver.stop_profile()
+        first = sorted((r for lg in logs for r in lg), key=lambda r: r.end)
+        traced = {"trace": Trace(prof, n, [s for sp in spans for s in sp],
+                                 sync_ns),
+                  "instances": [r.inst for r in first]}
+
+    def loop(k):
+        while time.perf_counter() < t_end:
+            one(k, next(seqs[k]))
+
+    in_sessions(n_sessions, loop)
+    records = sorted((r for lg in logs for r in lg), key=lambda r: r.end)
     return records, answers, traced
 
 
@@ -415,17 +499,19 @@ class Answers:
 
     def __init__(self):
         self.distinct: Dict[int, List[list]] = {}
+        self.lock = threading.Lock()  # sessions add from their threads
 
     def add(self, index: int, rows) -> Optional[tuple]:
         if rows is None:
             return None
-        kept = self.distinct.setdefault(index, [])
-        for k, entry in enumerate(kept[:self.MATCH]):
-            if entry[0] == rows:
-                entry[1] += 1
-                return index, k
-        kept.append([rows, 1])
-        return index, len(kept) - 1
+        with self.lock:
+            kept = self.distinct.setdefault(index, [])
+            for k, entry in enumerate(kept[:self.MATCH]):
+                if entry[0] == rows:
+                    entry[1] += 1
+                    return index, k
+            kept.append([rows, 1])
+            return index, len(kept) - 1
 
 
 def check(answers: Answers, traffic: Traffic, tables) -> dict:
@@ -467,7 +553,9 @@ def forbidden_modules() -> List[str]:
     return sorted({m.split(".")[0] for m in sys.modules} & set(FORBIDDEN))
 
 
-def main(argv=None, t_start: float = None) -> int:
+def main(argv=None, t_start: float = None, early=None) -> int:
+    """``early``: the process the cell's driver started before this one
+    imported torch (``perfbench/prestart.py``), or None."""
     import argparse
 
     ap = argparse.ArgumentParser(description=__doc__)
@@ -482,9 +570,16 @@ def main(argv=None, t_start: float = None) -> int:
         print(f"perfbench: the cell needs {chips} CUDA device(s); "
               f"torch.cuda.is_available() is {torch.cuda.is_available()}, "
               f"device_count() {torch.cuda.device_count()}", file=sys.stderr)
+        if early is not None:
+            early.kill()
+            early.communicate()
         return 2
-    out = run(args.workload, args.seed, args.seconds, bool(args.trace),
-              device="cuda:0", t_start=t_start)
+    try:
+        out = run(args.workload, args.seed, args.seconds, bool(args.trace),
+                  device=DEVICE, t_start=t_start, early=early)
+    except ForbiddenModules as e:
+        print(f"perfbench: {e}", file=sys.stderr)
+        return 3
     found = forbidden_modules()
     if found:
         print(f"perfbench: loaded in this process: {found}", file=sys.stderr)

@@ -17,8 +17,9 @@ statement's ``QueryTrace`` comes with its completed event,
    synchronizing calls torch reports beside the trace's ``wait`` spans.
 
 A span's self time is its duration less its child spans'.  Every metric is
-a mean over the statements of replay 2.  A program that keeps no trace
-gives None: no metric of this family is read.  One line
+a mean over the statements of replay 2; ``unspanned_ms_per_query`` is a
+call's host time in no root span (``statement``, ``to_host``).  A program
+that keeps no trace gives None: no metric of this family is read.  One line
 ``{"program_trace": ...}`` on standard error holds the rest, by template.
 """
 
@@ -43,7 +44,7 @@ FRONTEND = ("parse", "plan", "optimize")
 
 
 def of(run) -> Optional[dict]:
-    """The six metrics' values, computed once per run (kept on ``run``)."""
+    """The metrics' values, computed once per run (kept on ``run``)."""
     if "_program_trace" not in run.__dict__:
         run._program_trace = _measure(run)
     return run._program_trace
@@ -89,7 +90,8 @@ def _measure(run) -> Optional[dict]:
     if syncs is not None:
         detail["sync_check"] = syncs
     harness.log(program_trace=detail)
-    return metrics
+    return dict(metrics,
+                unspanned_ms_per_query=detail["outside_ms_per_query"])
 
 
 def _one(engine, inst):

@@ -29,6 +29,13 @@ sys.path.insert(0, ROOT)
 for var in ("OMP_NUM_THREADS", "MKL_NUM_THREADS"):
     os.environ[var] = "1"
 
+if __name__ == "__main__":
+    from perfbench.prestart import prestart
+
+    # a driver's own process imports the program while this one imports
+    # torch
+    EARLY = prestart(sys.argv[1:])
+
 import torch  # noqa: E402
 
 torch.set_num_threads(1)
@@ -36,4 +43,4 @@ torch.set_num_threads(1)
 from perfbench.harness import main  # noqa: E402
 
 if __name__ == "__main__":
-    sys.exit(main(t_start=T_START))
+    sys.exit(main(t_start=T_START, early=EARLY))

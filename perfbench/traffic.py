@@ -3,7 +3,12 @@ and a seed give the instances of each template and the order of the
 closed loop.
 
 Mix keys:
-  ``session``          session properties of the one client session
+  ``driver``           what runs the program and sends its queries, found as
+                       ``perfbench/drivers/<name>.py`` (default ``engine``:
+                       one ``Engine`` in the harness's own process)
+  ``sessions``         client sessions, each a closed loop of its own
+                       (default 1)
+  ``session``          session properties of the program's engine
   ``templates``        template names (``q3``), found as
                        ``perfbench/reference/<suite>_<name>.py``
   ``instances``        parameter instances drawn per template
@@ -11,7 +16,9 @@ Mix keys:
   ``trace_queries``    queries the traced run profiles
 
 The instances are the same for every run's seed, so that every seed asks
-for the same work; the run's seed draws the order.  The tests and the
+for the same work; the run's seed draws the order, and each session its
+own order from the seed and its index (session 0's is the one a cell of
+one session has always drawn).  The tests and the
 control draw other instances by passing ``instance_seed`` themselves.  Every cycle of the
 loop sends each template once, in an order drawn anew for each cycle, and
 a template's instances come round in a seeded order, each as often as the
@@ -41,7 +48,8 @@ class Traffic:
     def __init__(self, mix: dict, suite: str, seed: int,
                  instance_seed: Optional[int] = None):
         self.mix = mix
-        self.rng = np.random.default_rng(seed % (1 << 128))
+        self.seed = seed % (1 << 128)
+        self.rng = np.random.default_rng(self.seed)
         self.templates = {t: template(suite, t) for t in mix["templates"]}
         self.instances: List[Instance] = []
         self.by_template: Dict[str, List[Instance]] = {}
@@ -67,15 +75,17 @@ class Traffic:
                 have += [c for c in cols if c not in have]
         return out
 
-    def sequence(self) -> Iterator[Instance]:
-        """The closed loop's queries, without end."""
+    def sequence(self, session: int = 0) -> Iterator[Instance]:
+        """The closed loop's queries of one session, without end."""
+        rng = self.rng if session == 0 else \
+            np.random.default_rng([self.seed, session])
         names = list(self.templates)
         turns = {n: [self.by_template[n][k] for k in
-                     self.rng.permutation(len(self.by_template[n]))]
+                     rng.permutation(len(self.by_template[n]))]
                  for n in names}
         step = {n: 0 for n in names}
         while True:
-            for k in self.rng.permutation(len(names)):
+            for k in rng.permutation(len(names)):
                 n = names[k]
                 yield turns[n][step[n] % len(turns[n])]
                 step[n] += 1
