@@ -25,6 +25,16 @@ where possible to keep the wire thin.  The coordinator's own final stage
 runs on the engine's ``device``.  ``split_aggregate`` is also what the
 rule that pushes an aggregation through UNION ALL (``sql/matching.py``)
 uses to cut one Aggregate into per-branch partials and one final.
+
+``execute_statement`` is the statement route of a coordinator that does not
+execute (``server/coordinator.py``): with ``trace`` on, a statement's
+``QueryTrace`` (``trace.py``) holds the coordinator's spans (``parse``,
+``plan``, ``optimize``, ``stage_dag``, ``schedule`` for each stage with a
+``task_create`` for each task, ``task_wait`` where it waits for task
+status, ``gather`` around its page pulls, ``execute`` around its final
+stage) and grafts the rest: each pull thread's ``fetch_pages`` and
+``pages_decode`` under ``gather``, each task's own spans
+(``server/worker.py``) under the ``schedule`` span that created it.
 """
 
 from __future__ import annotations
@@ -41,6 +51,8 @@ from urllib import request as urlrequest
 import numpy as np
 import torch
 
+from .. import trace as tracing
+from ..batch import from_numpy
 from ..expr import ir
 from ..sql import logical as L
 from ..sql import parser as sql_parser
@@ -48,7 +60,9 @@ from ..sql.optimizer import optimize
 from ..sql.planner import Planner
 from ..sql.serde import plan_to_json
 from ..server.discovery import Backoff, NodeRegistry
-from ..types import BIGINT, DOUBLE
+from ..server.security import internal_headers
+from ..trace import span
+from ..types import BIGINT, DOUBLE, VARCHAR
 from .executor import Executor
 from .pages import concat_batches, deserialize_batch
 
@@ -210,10 +224,13 @@ def _merge_build_domains(clients, lks: List[str], rks: List[str],
 class RemoteTaskClient:
     """Coordinator-side handle for one worker task (HttpRemoteTask analog)."""
 
-    def __init__(self, node, task_id: str):
+    def __init__(self, node, task_id: str,
+                 headers: Optional[Dict[str, str]] = None):
         self.node = node
         self.task_id = task_id
         self.backoff = Backoff()
+        # sent with every request: the cluster's internal bearer, if any
+        self.headers = {"Content-Type": "application/json", **(headers or {})}
 
     def create(self, fragment_json: dict, shard: Optional[dict],
                sources: Optional[dict] = None,
@@ -222,7 +239,7 @@ class RemoteTaskClient:
                collect_stats: bool = False,
                collect_hot: Optional[float] = None,
                hot_hashes: Optional[list] = None,
-               query: Optional[str] = None) -> None:
+               query: Optional[str] = None, trace: bool = False) -> None:
         body = json.dumps({"fragment": fragment_json, "shard": shard,
                            "sources": sources,
                            "output_partitioning": partitioning,
@@ -230,7 +247,7 @@ class RemoteTaskClient:
                            "collect_stats": collect_stats,
                            "collect_hot": collect_hot,
                            "hot_hashes": hot_hashes,
-                           "query": query}).encode()
+                           "query": query, "trace": trace}).encode()
         self._rpc("POST", f"/v1/task/{self.task_id}", body)
 
     def status(self) -> dict:
@@ -284,7 +301,7 @@ class RemoteTaskClient:
             try:
                 req = urlrequest.Request(
                     f"{self.node.uri}{path}", data=body, method=method,
-                    headers={"Content-Type": "application/json"})
+                    headers=self.headers)
                 with urlrequest.urlopen(req, timeout=30) as resp:
                     payload = resp.read()
                     self.backoff.success()
@@ -316,12 +333,17 @@ class MultiHostEngine:
     run one task per table shard, hash stages one task per partition, and
     pages move worker-to-worker over HTTP -- the coordinator pulls only the
     stages it consumes directly, and runs the rest of the plan on
-    ``device``."""
+    ``device``.  ``session`` and ``access_control`` are the statement
+    route's (``execute_statement``): the default user and catalog, and the
+    table check."""
 
     def __init__(self, catalog, registry: NodeRegistry,
                  shards_per_node: int = 1, dynamic_filtering: bool = True,
                  broadcast_threshold: int = 100_000,
-                 skew_threshold: float = 4.0, device="cuda"):
+                 skew_threshold: float = 4.0, device="cuda", session=None,
+                 access_control=None, internal_secret: Optional[str] = None):
+        from .session import Session
+
         self.catalog = catalog  # coordinator-local metadata (plan-time only)
         self.device = torch.device(device)
         self.registry = registry
@@ -332,10 +354,25 @@ class MultiHostEngine:
         # row count exceeds threshold x fair-share reroutes round-robin
         # and its build rows replicate to every task (0 disables)
         self.skew_threshold = skew_threshold
+        self.session = session or Session()
+        self.access_control = access_control  # server/security.AccessControl
+        # the cluster's shared secret: its bearer rides every request to a
+        # worker, and the coordinator's discovery asks for it
+        self.internal_secret = internal_secret
+        # with tracing on, each statement of ``execute_statement`` keeps a
+        # QueryTrace, carried by its batch
+        self.trace = False
 
     def plan(self, sql: str) -> L.LogicalNode:
-        q = sql_parser.parse(sql)
-        return optimize(Planner(self.catalog).plan(q), self.catalog)
+        with span("parse"):
+            q = sql_parser.parse(sql)
+        return self._plan_ast(q)
+
+    def _plan_ast(self, q) -> L.LogicalNode:
+        with span("plan"):
+            plan = Planner(self.catalog).plan(q)
+        with span("optimize"):
+            return optimize(plan, self.catalog)
 
     def sql(self, sql: str, info: Optional[dict] = None,
             operator_stats: Optional[bool] = None):
@@ -344,18 +381,81 @@ class MultiHostEngine:
         ``info`` is given) asks every task for per-operator statistics,
         which only the eager route produces, so the workers then run their
         fragments eagerly."""
-        from .stage_dag import build_stage_dag
-
         if operator_stats is None:
             operator_stats = info is not None
+        return self._run(self.plan(sql), info=info,
+                         operator_stats=operator_stats)
+
+    @staticmethod
+    def runs(stmt) -> bool:
+        """Whether the workers execute ``stmt`` (a parsed statement): a
+        query, or the query of an EXPLAIN ANALYZE.  Every other statement
+        is the coordinator's own (metadata, DDL, DML, a plain EXPLAIN)."""
+        from ..sql import ast
+
+        return isinstance(stmt, ast.Query) or (
+            isinstance(stmt, ast.Explain) and stmt.analyze)
+
+    def execute_statement(self, sql, user: Optional[str] = None,
+                          stats: Optional[dict] = None):
+        """``sql`` (its text, or the statement parsed) as
+        ``Engine.execute_statement`` runs a query or an EXPLAIN ANALYZE (the
+        same table check on the resolved scans, failing closed, the same
+        RecordBatch out), over the workers; any other statement (``runs``)
+        raises ValueError.  ``stats`` (a dict) receives the statement's
+        ``stages``, ``tasks``, the tasks of each node by its id
+        (``nodes``), the bytes the workers pulled from each other
+        (``exchange_bytes``) and the coordinator pulled
+        (``coordinator_bytes``).  With ``trace`` on, the statement's
+        QueryTrace rides on the batch (``to_pylist`` adds ``to_host``)."""
+        from ..sql import ast
+        from ..sql.parser import parse_statement
+        from .engine import Engine
+
+        trace = tracing.QueryTrace(uuid.uuid4().hex[:12]) if self.trace \
+            else None
+        with tracing.enter(trace, "statement"):
+            stmt = sql
+            if isinstance(sql, str):
+                with span("parse"):
+                    stmt = parse_statement(sql)
+            if not self.runs(stmt):
+                raise ValueError(f"{type(stmt).__name__} is not a query: "
+                                 f"the coordinator runs it")
+            query = stmt.query if isinstance(stmt, ast.Explain) else stmt
+            plan = self._plan_ast(query)
+            if self.access_control is not None:
+                for table in Engine.scan_tables(plan):
+                    self.access_control.check_can_select(
+                        user or self.session.user, self.session.catalog,
+                        table)
+            if isinstance(stmt, ast.Explain):
+                text = self._analyze(plan, summary=stats, trace=trace)
+                out = from_numpy(
+                    {"plan": np.asarray(text.split("\n"), dtype="U")},
+                    {"plan": VARCHAR}, device=self.device)
+            else:
+                out = self._run(plan, summary=stats, trace=trace)
+        if trace is not None:
+            out.trace = trace
+        return out
+
+    def _run(self, plan, info: Optional[dict] = None,
+             operator_stats: bool = False, summary: Optional[dict] = None,
+             trace: Optional[tracing.QueryTrace] = None):
+        """``plan`` over the workers (``sql``'s ``info`` and
+        ``operator_stats``; ``execute_statement``'s ``stats`` as
+        ``summary``, its trace as ``trace``)."""
+        from .stage_dag import build_stage_dag
+
         t_query = time.time()
         query_id = uuid.uuid4().hex[:12]
-        plan = self.plan(sql)
-        coord_plan, coord_sources, stages = build_stage_dag(
-            plan, self.catalog,
-            broadcast_threshold=self.broadcast_threshold,
-            dynamic_filtering=self.dynamic_filtering,
-            skew=bool(self.skew_threshold))
+        with span("stage_dag"):
+            coord_plan, coord_sources, stages = build_stage_dag(
+                plan, self.catalog,
+                broadcast_threshold=self.broadcast_threshold,
+                dynamic_filtering=self.dynamic_filtering,
+                skew=bool(self.skew_threshold))
         nodes = self.registry.active_nodes()
         if not nodes:
             raise QueryFailed("no active worker nodes")
@@ -365,8 +465,9 @@ class MultiHostEngine:
 
         nodes = make_node_selector(nodes).order(nodes)
         if not stages:  # e.g. FROM-less SELECT
-            return Executor(self.catalog,
-                            device=self.device).execute(coord_plan)
+            with span("execute"):
+                return Executor(self.catalog,
+                                device=self.device).execute(coord_plan)
         n_parts = len(nodes) * self.shards_per_node
         metrics = {"coordinator_bytes": 0, "coordinator_decode_ms": 0.0,
                    "exchange_tasks": 0,
@@ -386,6 +487,8 @@ class MultiHostEngine:
                    # repartition joins where hot-key rerouting fired
                    "skew_joins": 0}
         stage_clients: Dict[int, List[RemoteTaskClient]] = {}
+        # each stage's ``schedule`` span, under which its tasks' spans go
+        schedule_spans: Dict[int, int] = {}
 
         def task_sources(st, p: int) -> Optional[dict]:
             out = {}
@@ -401,6 +504,14 @@ class MultiHostEngine:
             if sid in stage_clients:
                 return
             st = stages[sid]
+            detail = None if trace is None else {
+                "stage": sid, "distribution": st.distribution}
+            with span("schedule", detail) as sp:
+                if trace is not None:
+                    schedule_spans[sid] = sp.i
+                schedule_tasks(sid, st, detail)
+
+        def schedule_tasks(sid: int, st, detail: Optional[dict]) -> None:
             # distributed dynamic filtering: run the build stage to
             # completion first, merge per-task key [min,max] reports, and
             # push the merged domain into the probe stage BEFORE its tasks
@@ -410,9 +521,10 @@ class MultiHostEngine:
                 if (probe_sid not in stage_clients
                         and stages[probe_sid].distribution == "source"):
                     schedule(build_sid)
-                    conj = _merge_build_domains(
-                        stage_clients[build_sid], lks, rks,
-                        stages[probe_sid].plan.schema)
+                    with span("task_wait"):
+                        conj = _merge_build_domains(
+                            stage_clients[build_sid], lks, rks,
+                            stages[probe_sid].plan.schema)
                     if conj:
                         stages[probe_sid].plan = _apply_dynamic_filter(
                             stages[probe_sid].plan, conj)
@@ -431,10 +543,11 @@ class MultiHostEngine:
                     stages[probe_sid].collect_hot = self.skew_threshold
                     schedule(probe_sid)
                     hot: set = set()
-                    for c in stage_clients[probe_sid]:
-                        hot.update(int(x) for x in
-                                   (c.wait_finished().get("hotKeys")
-                                    or []))
+                    with span("task_wait"):
+                        for c in stage_clients[probe_sid]:
+                            hot.update(int(x) for x in
+                                       (c.wait_finished().get("hotKeys")
+                                        or []))
                     if hot:
                         stages[build_sid].hot_hashes = sorted(hot)
                         metrics["skew_joins"] += 1
@@ -459,21 +572,27 @@ class MultiHostEngine:
                 splits = mgr.splits(tbl, n_parts) if tbl is not None \
                     else None
             n_tasks = len(splits) if splits is not None else n_parts
+            if detail is not None:
+                detail["tasks"] = n_tasks
             clients = []
             for p in range(n_tasks):
                 node = nodes[p % len(nodes)]
-                client = RemoteTaskClient(node, uuid.uuid4().hex[:16])
+                client = RemoteTaskClient(
+                    node, uuid.uuid4().hex[:16],
+                    internal_headers(self.internal_secret))
                 shard = (splits[p].to_wire() if splits is not None
                          else ({"index": p, "count": n_parts}
                                if st.distribution == "source" else None))
-                client.create(frag_json, shard,
-                              sources=task_sources(st, p),
-                              partitioning=part,
-                              collect_domains=st.collect_domains,
-                              collect_stats=operator_stats,
-                              collect_hot=st.collect_hot,
-                              hot_hashes=st.hot_hashes,
-                              query=query_id)
+                with span("task_create", None if trace is None
+                          else {"node": node.node_id}):
+                    client.create(frag_json, shard,
+                                  sources=task_sources(st, p),
+                                  partitioning=part,
+                                  collect_domains=st.collect_domains,
+                                  collect_stats=operator_stats,
+                                  collect_hot=st.collect_hot,
+                                  hot_hashes=st.hot_hashes,
+                                  query=query_id, trace=trace is not None)
                 clients.append(client)
             stage_clients[sid] = clients
             metrics["stage1_tasks" if st.distribution == "source"
@@ -486,47 +605,43 @@ class MultiHostEngine:
             schedule(sid)
 
         # gather the stages the coordinator consumes directly (in
-        # parallel: page pulls long-poll until tasks finish)
+        # parallel: page pulls long-poll until tasks finish); traced, each
+        # pull records into a trace of its own, grafted under ``gather``
         stubs: Dict[Tuple[int, ...], object] = {}
         errors: List[Exception] = []
         lock = threading.Lock()
+        pulled: List[tracing.QueryTrace] = []
 
         def pull(path, sid):
+            sub = None if trace is None else tracing.QueryTrace(query_id)
             try:
                 nbytes = 0
                 decode_s = 0.0
                 task_batches = []  # per task: its pages, in order
                 for c in stage_clients[sid]:
-                    pages = []
-                    for page in c.fetch_pages():
-                        nbytes += len(page)
-                        t0 = time.perf_counter()
-                        pages.append(deserialize_batch(page))
-                        decode_s += time.perf_counter() - t0
+                    fetched = None if sub is None else {"task": c.task_id}
+                    with tracing.enter(sub, "fetch_pages", fetched):
+                        got = c.fetch_pages()
+                    size = sum(map(len, got))
+                    decoded = None if sub is None else {"bytes": size}
+                    t0 = time.perf_counter()
+                    with tracing.enter(sub, "pages_decode", decoded):
+                        pages = [deserialize_batch(page) for page in got]
+                    decode_s += time.perf_counter() - t0
+                    nbytes += size
+                    if sub is not None:
+                        fetched.update(pages=len(got), bytes=size)
+                        decoded["rows"] = sum(int(b.num_rows) for b in pages)
                     if pages:
                         task_batches.append(pages)
+                merging = None if sub is None else {}
                 t0 = time.perf_counter()
-                if stages[sid].sorted_by is not None and task_batches:
-                    # distributed sort consumer: each task's pages are
-                    # consecutive slices of ITS sorted output — concat per
-                    # task, then k-way merge across tasks (exec/merge.py;
-                    # MergeOperator analog), never a coordinator re-sort
-                    from .merge import merge_sorted_batches
-
-                    runs = [concat_batches(pages) for pages in task_batches]
-                    merged = merge_sorted_batches(
-                        runs, stages[sid].sorted_by, device=self.device)
-                    with lock:
-                        metrics["merged_stages"] = \
-                            metrics.get("merged_stages", 0) + 1
-                else:
-                    merged = concat_batches(
-                        [b for pages in task_batches for b in pages],
-                        device=self.device)
-                if merged is None:
-                    merged = empty_batch(stages[sid].plan.schema,
-                                         self.device)
+                with tracing.enter(sub, "pages_decode", merging):
+                    merged = self._merge_pages(sid, stages, task_batches,
+                                               metrics, lock)
                 decode_s += time.perf_counter() - t0
+                if sub is not None:
+                    merging["rows"] = int(merged.num_rows)
                 with lock:
                     stubs[path] = merged
                     metrics["coordinator_bytes"] += nbytes
@@ -534,91 +649,152 @@ class MultiHostEngine:
             except Exception as e:  # noqa: BLE001 — fails the query below
                 with lock:
                     errors.append(e)
+            finally:
+                if sub is not None:
+                    with lock:
+                        pulled.append(sub)
 
-        threads = [threading.Thread(target=pull, args=(path, sid),
-                                    daemon=True)
-                   for path, sid in coord_sources.items()]
-        for t in threads:
-            t.start()
-        for t in threads:
-            t.join()
+        with span("gather") as gather:
+            threads = [threading.Thread(target=pull, args=(path, sid),
+                                        daemon=True)
+                       for path, sid in coord_sources.items()]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join()
+        for sub in pulled:
+            trace.graft(gather.i, sub.spans)
         if errors:
             raise QueryFailed(str(errors[0]))
 
+        infos: Dict[int, List[Optional[dict]]] = {}
+        if info is not None or summary is not None or trace is not None:
+            with span("task_wait", None if trace is None
+                      else {"tasks": sum(map(len, stage_clients.values()))}):
+                infos = _task_infos(stage_clients)
+        if trace is not None:
+            for sid, got in infos.items():
+                for inf in got:
+                    if inf and inf.get("spans"):
+                        trace.graft(schedule_spans[sid], inf["spans"])
+        if summary is not None:
+            by_node: Dict[str, int] = {}
+            for clients in stage_clients.values():
+                for c in clients:
+                    by_node[c.node.node_id] = by_node.get(
+                        c.node.node_id, 0) + 1
+            summary.update(
+                stages=len(stages), tasks=sum(by_node.values()),
+                nodes=by_node,
+                exchange_bytes=sum(int(inf.get("bytesIn") or 0)
+                                   for got in infos.values()
+                                   for inf in got if inf),
+                coordinator_bytes=metrics["coordinator_bytes"])
         if info is not None:
-            # per-task stats rollup over HTTP (OperatorStats -> TaskStats ->
-            # StageStats, server/TaskResource.java task info): merge every
-            # task's operator tree per stage
-            stage_stats: List[dict] = []
-            for sid, st in enumerate(stages):
-                merged: Dict[tuple, dict] = {}
-                stage_wall = 0.0
-                stage_fetch = 0.0
-                task_bytes_in: List[int] = []
-                serialize_ms: List[float] = []
-                decode_ms: List[float] = []
-                routes: List[Optional[str]] = []
-                for c in stage_clients[sid]:
-                    try:
-                        tinfo = c.status()
-                    except Exception:  # noqa: BLE001 — metric only
-                        continue
-                    if st.sources:
-                        metrics["exchange_bytes_in"] += int(
-                            tinfo.get("bytesIn") or 0)
-                    task_bytes_in.append(int(tinfo.get("bytesIn") or 0))
-                    serialize_ms.append(float(tinfo.get("serializeMs") or 0))
-                    decode_ms.append(float(tinfo.get("decodeMs") or 0))
-                    routes.append(tinfo.get("route"))
-                    # stage wall = slowest task, INCLUDING its exchange
-                    # wait: that wait overlaps upstream execution, so
-                    # query wall < sum of stage walls proves pipelining
-                    stage_wall = max(stage_wall,
-                                     float(tinfo.get("wallMs") or 0.0))
-                    stage_fetch = max(stage_fetch,
-                                      float(tinfo.get("fetchMs") or 0.0))
-                    for op in tinfo.get("operatorStats") or []:
-                        key = tuple(op["path"])
-                        m = merged.setdefault(
-                            key, {"path": op["path"], "name": op["name"],
-                                  "rows": 0, "wallMs": 0.0, "tasks": 0})
-                        m["rows"] += op["rows"]
-                        m["wallMs"] += op["wallMs"]
-                        m["tasks"] += 1
-                stage_stats.append({
-                    "stage": sid,
-                    "distribution": st.distribution,
-                    "table": st.table,
-                    "partitionKeys": st.partition_keys,
-                    "tasks": len(stage_clients[sid]),
-                    "wallMs": stage_wall,
-                    "fetchMs": stage_fetch,
-                    "taskBytesIn": task_bytes_in,
-                    # per task: ms making its pages (partition + serialize)
-                    # and reading its inputs' pages (decode + merge +
-                    # upload), and how its fragment ran
-                    "taskSerializeMs": serialize_ms,
-                    "taskDecodeMs": decode_ms,
-                    "taskRoutes": routes,
-                    "operators": [merged[k] for k in sorted(merged)],
-                })
-            metrics["stage_stats"] = stage_stats
+            self._stage_stats(stages, stage_clients, infos, metrics)
             from ..sql.logical import plan_tree
 
             metrics["coordinator_plan"] = plan_tree(coord_plan)
             metrics["wall_ms"] = round((time.time() - t_query) * 1000, 3)
             info.update(metrics)
-        return Executor(self.catalog, stubs=stubs,
-                        device=self.device).execute(coord_plan)
+        with span("execute"):
+            return Executor(self.catalog, stubs=stubs,
+                            device=self.device).execute(coord_plan)
+
+    def _merge_pages(self, sid, stages, task_batches, metrics, lock):
+        """One consumed stage's pages as one batch on the device."""
+        if stages[sid].sorted_by is not None and task_batches:
+            # distributed sort consumer: each task's pages are
+            # consecutive slices of ITS sorted output — concat per
+            # task, then k-way merge across tasks (exec/merge.py;
+            # MergeOperator analog), never a coordinator re-sort
+            from .merge import merge_sorted_batches
+
+            runs = [concat_batches(pages) for pages in task_batches]
+            merged = merge_sorted_batches(
+                runs, stages[sid].sorted_by, device=self.device)
+            with lock:
+                metrics["merged_stages"] = \
+                    metrics.get("merged_stages", 0) + 1
+        else:
+            merged = concat_batches(
+                [b for pages in task_batches for b in pages],
+                device=self.device)
+        if merged is None:
+            merged = empty_batch(stages[sid].plan.schema, self.device)
+        return merged
+
+    @staticmethod
+    def _stage_stats(stages, stage_clients, infos, metrics) -> None:
+        """Per-task stats rollup over HTTP (OperatorStats -> TaskStats ->
+        StageStats, server/TaskResource.java task info): every task's
+        operator tree merged per stage, into ``metrics``."""
+        stage_stats: List[dict] = []
+        for sid, st in enumerate(stages):
+            merged: Dict[tuple, dict] = {}
+            stage_wall = 0.0
+            stage_fetch = 0.0
+            task_bytes_in: List[int] = []
+            serialize_ms: List[float] = []
+            decode_ms: List[float] = []
+            routes: List[Optional[str]] = []
+            for tinfo in infos.get(sid, []):
+                if tinfo is None:  # metric only
+                    continue
+                if st.sources:
+                    metrics["exchange_bytes_in"] += int(
+                        tinfo.get("bytesIn") or 0)
+                task_bytes_in.append(int(tinfo.get("bytesIn") or 0))
+                serialize_ms.append(float(tinfo.get("serializeMs") or 0))
+                decode_ms.append(float(tinfo.get("decodeMs") or 0))
+                routes.append(tinfo.get("route"))
+                # stage wall = slowest task, INCLUDING its exchange
+                # wait: that wait overlaps upstream execution, so
+                # query wall < sum of stage walls proves pipelining
+                stage_wall = max(stage_wall,
+                                 float(tinfo.get("wallMs") or 0.0))
+                stage_fetch = max(stage_fetch,
+                                  float(tinfo.get("fetchMs") or 0.0))
+                for op in tinfo.get("operatorStats") or []:
+                    key = tuple(op["path"])
+                    m = merged.setdefault(
+                        key, {"path": op["path"], "name": op["name"],
+                              "rows": 0, "wallMs": 0.0, "tasks": 0})
+                    m["rows"] += op["rows"]
+                    m["wallMs"] += op["wallMs"]
+                    m["tasks"] += 1
+            stage_stats.append({
+                "stage": sid,
+                "distribution": st.distribution,
+                "table": st.table,
+                "partitionKeys": st.partition_keys,
+                "tasks": len(stage_clients[sid]),
+                "wallMs": stage_wall,
+                "fetchMs": stage_fetch,
+                "taskBytesIn": task_bytes_in,
+                # per task: ms making its pages (partition + serialize)
+                # and reading its inputs' pages (decode + merge +
+                # upload), and how its fragment ran
+                "taskSerializeMs": serialize_ms,
+                "taskDecodeMs": decode_ms,
+                "taskRoutes": routes,
+                "operators": [merged[k] for k in sorted(merged)],
+            })
+        metrics["stage_stats"] = stage_stats
 
     def explain_analyze(self, sql: str) -> str:
         """Distributed EXPLAIN ANALYZE: execute, then render the merged
         per-stage operator stats tree (the planprinter analog over
         worker-shipped OperatorStats)."""
-        from ..sql.logical import plan_tree
+        return self._analyze(self.plan(sql))
 
+    def _analyze(self, plan, summary: Optional[dict] = None,
+                 trace: Optional[tracing.QueryTrace] = None) -> str:
+        """``explain_analyze``'s text for ``plan`` (``_run``'s ``summary``
+        and ``trace``)."""
         info: dict = {}
-        self.sql(sql, info=info)
+        self._run(plan, info=info, operator_stats=True, summary=summary,
+                  trace=trace)
         lines = [f"Stages: {info.get('stages', 0)}  "
                  f"coordinator_bytes={info.get('coordinator_bytes', 0)}  "
                  f"exchange_bytes_in={info.get('exchange_bytes_in', 0)}  "
@@ -648,6 +824,24 @@ class MultiHostEngine:
         """``sql`` as a pandas frame (pandas is imported here, off the
         server path)."""
         return self.sql(sql).to_pandas()
+
+
+def _task_infos(stage_clients) -> Dict[int, List[Optional[dict]]]:
+    """Every task's info (its status), by stage, asked of all at once;
+    None for a task that did not answer."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    def status(c):
+        try:
+            return c.status()
+        except Exception:  # noqa: BLE001 — statistics only
+            return None
+
+    clients = [c for cs in stage_clients.values() for c in cs]
+    with ThreadPoolExecutor(max_workers=min(len(clients), 16) or 1) as pool:
+        got = iter(list(pool.map(status, clients)))
+    return {sid: [next(got) for _ in cs]
+            for sid, cs in stage_clients.items()}
 
 
 def empty_batch(schema, device) -> "RecordBatch":

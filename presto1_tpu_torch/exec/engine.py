@@ -95,7 +95,8 @@ class Engine:
             acl.check_can_select(user or self.session.user,
                                  self.session.catalog, table)
 
-    def scan_tables(self, plan: LogicalNode) -> list:
+    @staticmethod
+    def scan_tables(plan: LogicalNode) -> list:
         from ..sql.logical import Scan
 
         out, stack = [], [plan]

@@ -94,6 +94,13 @@ def serialize_batch(batch: RecordBatch, compress: bool = True) -> bytes:
     return MAGIC + struct.pack("<I", crc) + payload
 
 
+def page_raw_bytes(data: bytes) -> int:
+    """The bytes of a page's buffers before compression (its header's
+    ``buffer_lengths``)."""
+    hlen, _ = struct.unpack_from("<II", data, 8)
+    return sum(json.loads(data[16:16 + hlen].decode())["buffer_lengths"])
+
+
 def deserialize_batch(data: bytes, device=None) -> RecordBatch:
     """bytes -> RecordBatch of tensors on ``device`` (None: the host)."""
     if data[:4] != MAGIC:

@@ -10,13 +10,26 @@ the same three scopes as plain Python:
 
 * ``etc/node.properties``    — node identity (node.id, node.environment)
 * ``etc/config.properties``  — server role + HTTP + memory + session
-  defaults (``coordinator=true|false``, ``http-server.http.port``,
+  defaults (``coordinator=true|false``,
+  ``node-scheduler.include-coordinator``,
+  ``internal-communication.shared-secret``, ``http-server.http.port``,
   ``discovery.uri``, ``query.max-memory-per-node``, and any
   ``<session property>=<value>`` override applied to the default
   session — the SystemSessionProperties analog)
 * ``etc/catalog/*.properties`` — one file per catalog naming
-  ``connector.name`` (tpch / tpcds / memory / file) plus
-  connector-specific properties.
+  ``connector.name`` (tpch / tpcds / memory / file, or a connector's
+  factory as ``<module>:<function>``, the plugin loading of the
+  reference) plus connector-specific properties.
+
+A coordinator with ``node-scheduler.include-coordinator=false`` (Trino's
+multi-node deployment) schedules every query onto the workers that announce
+themselves to its discovery endpoint and runs the rest of its statements
+itself; with ``true`` (the default, Trino's single node) it runs them all.
+Every node of a cluster reads the same ``etc/catalog``: a worker builds its
+catalog from those properties as the coordinator does.  Every node of a
+cluster sets the same ``internal-communication.shared-secret``, whose bearer
+its internal requests carry (``security.internal_headers``); a coordinator
+with password authentication and workers refuses to start without one.
 
 Values are validated at load time (unknown connector, malformed size)
 — the airlift fail-at-bootstrap contract.
@@ -24,6 +37,7 @@ Values are validated at load time (unknown connector, malformed size)
 
 from __future__ import annotations
 
+import importlib
 import os
 import re
 from dataclasses import dataclass, field
@@ -76,10 +90,19 @@ def build_catalog(props: Dict[str, str], name: str = "catalog",
                   device="cuda"):
     """One catalog .properties -> a Catalog instance on ``device``
     (PluginManager + CatalogManager analog; ``connector.name`` selects the
-    plugin)."""
+    plugin).  A ``connector.name`` of the form ``<module>:<function>`` names
+    a connector's factory, called as ``function(props, name, device)``."""
     kind = props.get("connector.name")
     if not kind:
         raise ConfigError(f"{name}: missing connector.name")
+    if ":" in kind:
+        module, _, attr = kind.partition(":")
+        try:
+            factory = getattr(importlib.import_module(module), attr)
+        except (ImportError, AttributeError) as e:
+            raise ConfigError(f"{name}: connector factory {kind!r} not "
+                              f"found: {e}") from None
+        return factory(props, name, device)
     if kind == "tpch":
         from ..exec.catalog import TpchCatalog
 
@@ -111,6 +134,11 @@ class ServerConfig:
     """Typed view of one etc dir (the bootstrap-validated @Config POJOs)."""
 
     coordinator: bool = True
+    # a coordinator that also executes (single node); False: queries run
+    # on the discovered workers
+    include_coordinator: bool = True
+    # the cluster's shared secret for internal communication (None: none)
+    shared_secret: Optional[str] = None
     http_host: str = "127.0.0.1"
     http_port: int = 8080
     discovery_uri: Optional[str] = None
@@ -135,13 +163,21 @@ class ServerConfig:
         cfg_path = os.path.join(etc, "config.properties")
         props = load_properties(cfg_path) if os.path.exists(cfg_path) else {}
         known = {
-            "coordinator", "http-server.http.port", "http-server.http.host",
+            "coordinator", "node-scheduler.include-coordinator",
+            "internal-communication.shared-secret",
+            "http-server.http.port", "http-server.http.host",
             "discovery.uri", "query.max-memory-per-node",
             "query.max-concurrent-queries", "catalog.default",
         }
         for key, value in props.items():
             if key == "coordinator":
                 cfg.coordinator = parse_bool(value)
+            elif key == "node-scheduler.include-coordinator":
+                cfg.include_coordinator = parse_bool(value)
+            elif key == "internal-communication.shared-secret":
+                if not value:
+                    raise ConfigError(f"{cfg_path}: {key} is empty")
+                cfg.shared_secret = value
             elif key == "http-server.http.port":
                 cfg.http_port = int(value)
             elif key == "http-server.http.host":
@@ -205,15 +241,6 @@ class ServerConfig:
                 "config.properties")
         return name, self.catalogs[name]
 
-    def catalog_spec(self) -> str:
-        """Worker-style 'kind:arg' spec for the chosen catalog."""
-        name, props = self.pick_catalog_props()
-        kind = props.get("connector.name")
-        if kind == "tpch":
-            return f"tpch:{props.get('tpch.schema', 'tiny')}"
-        raise ConfigError(
-            f"worker role supports tpch catalogs, got {kind!r} ({name})")
-
     def build_coordinator(self):
         """etc dir -> a ready CoordinatorServer (Server.java:84 analog)."""
         import json
@@ -233,6 +260,17 @@ class ServerConfig:
                 if self.query_max_memory_per_node else None)
         engine = Engine(catalog, session=session, memory_pool=pool,
                         device=self.device)
+        cluster = None
+        if not self.include_coordinator:
+            # Trino's multi-node layout: queries go to the workers that
+            # announce themselves here; planning, the final stage and every
+            # other statement stay here
+            from ..exec.dist_engine import MultiHostEngine
+            from .discovery import NodeRegistry
+
+            cluster = MultiHostEngine(catalog, NodeRegistry(),
+                                      device=self.device, session=session,
+                                      internal_secret=self.shared_secret)
         # a password file means password authentication (the JAX package
         # passes it to the allow-all base class, which takes no argument:
         # ROADMAP C23)
@@ -244,15 +282,19 @@ class ServerConfig:
                 groups = json.load(f)
         return CoordinatorServer(engine, host=self.http_host,
                                  port=self.http_port, authenticator=auth,
-                                 resource_groups=groups)
+                                 resource_groups=groups, cluster=cluster)
 
     def build_worker(self):
+        """A worker over the catalog its properties describe (built when its
+        first task arrives), announcing itself to ``discovery.uri``."""
         from .worker import WorkerServer
 
-        return WorkerServer(self.catalog_spec(), host=self.http_host,
+        return WorkerServer(self.pick_catalog_props()[1],
+                            host=self.http_host,
                             port=self.http_port,
                             coordinator=self.discovery_uri,
-                            device=self.device)
+                            device=self.device,
+                            internal_secret=self.shared_secret)
 
     def build(self):
         return (self.build_coordinator() if self.coordinator

@@ -8,12 +8,17 @@ query manager with the QUEUED→RUNNING→FINISHED/FAILED state machine
 (``execution/QueryStateMachine.java``), token-paged JSON results, and
 cancellation via DELETE.
 
-This server fronts a single Engine on its torch device (the engine's
-``sql_distributed`` runs the mesh plane on one card, so the coordinator /
-worker split of the reference collapses there).  The multi-host plane is a
-separate coordinator surface: ``exec/dist_engine.MultiHostEngine`` schedules
-the stage DAG over ``server/worker.py`` task servers discovered via
-``server/discovery.py``.
+This server fronts an Engine on its torch device, which runs every
+statement where the coordinator also executes (Trino's single node,
+``node-scheduler.include-coordinator=true``).  Given a cluster (a
+``exec/dist_engine.MultiHostEngine``, ``include-coordinator=false``) it also
+serves discovery (``PUT /v1/announcement/{nodeId}``, ``GET /v1/node``) and
+sends each query and EXPLAIN ANALYZE there: the stage DAG runs as tasks on
+the ``server/worker.py`` servers that announced themselves, and the
+FINISHED page's ``stats`` count its stages, tasks, bytes and the tasks of
+each node.  Every other statement (metadata, DDL, DML, a plain EXPLAIN)
+runs on the local engine, as Trino's coordinator keeps them.  With the
+cluster's shared secret, discovery takes only requests that carry it.
 
 Result rows reach the wire as JSON built from numpy values
 (``_json_value``); nothing on this path imports pandas.  A running query's
@@ -62,6 +67,9 @@ class ManagedQuery:
         # exec.stats.QueryStats (eager-path queries); made with this
         # query's lock, which its record() and snapshots hold
         self.stats = None
+        # a query that ran on the cluster: its stage and task counts
+        # (MultiHostEngine.execute_statement), on the FINISHED page
+        self.cluster_stats: Optional[dict] = None
         self.lock = threading.Lock()
 
     def info(self) -> dict:
@@ -94,10 +102,13 @@ class QueryManager:
     ``execution/resourcegroups/InternalResourceGroup.java:77``)."""
 
     def __init__(self, engine: Engine, max_concurrency: int = 4,
-                 resource_groups: Optional[dict] = None):
+                 resource_groups: Optional[dict] = None, cluster=None):
         from .resource_groups import ResourceGroupManager
 
         self.engine = engine
+        # where queries run when the coordinator does not execute them
+        # (a MultiHostEngine), else None
+        self.cluster = cluster
         self.queries: Dict[str, ManagedQuery] = {}
         # the pool is sized generously; per-group hard concurrency limits
         # are what actually gate admission (InternalResourceGroup)
@@ -136,8 +147,10 @@ class QueryManager:
                 from ..exec.stats import QueryStats
 
                 q.stats = QueryStats(lock=q.lock)
-            out = self.engine.execute_statement(q.sql, user=q.session.user,
-                                                stats=q.stats)
+            cluster_stats: dict = {}
+            out = self.execute(q.sql, q.session.user, stats=q.stats,
+                               cluster_stats=cluster_stats)
+            q.cluster_stats = cluster_stats or None
             n = out.num_rows if isinstance(out.num_rows, int) else int(out.num_rows)
             decoded = {name: c.decode(n) for name, c in out.columns.items()}
             q.columns = [
@@ -158,6 +171,23 @@ class QueryManager:
             traceback.print_exc()
             with q.lock:
                 q.state = QueryState.FAILED
+
+    def execute(self, sql: str, user: Optional[str], stats=None,
+                cluster_stats: Optional[dict] = None):
+        """``sql`` as this coordinator runs it: where it has a cluster, the
+        statement is parsed once and a query or an EXPLAIN ANALYZE
+        (``MultiHostEngine.runs``) goes to the workers (its stage and task
+        counts into ``cluster_stats``); any other statement, and every
+        statement of a single node, runs on the local engine (``stats``: a
+        QueryStats for the eager path)."""
+        if self.cluster is not None:
+            from ..sql.parser import parse_statement
+
+            stmt = parse_statement(sql)
+            if self.cluster.runs(stmt):
+                return self.cluster.execute_statement(stmt, user=user,
+                                                      stats=cluster_stats)
+        return self.engine.execute_statement(sql, user=user, stats=stats)
 
     def cancel(self, query_id: str) -> bool:
         q = self.queries.get(query_id)
@@ -228,9 +258,17 @@ a{color:#9cf}</style></head>
 class CoordinatorServer:
     def __init__(self, engine: Engine, host: str = "127.0.0.1", port: int = 0,
                  authenticator=None, access_control=None,
-                 resource_groups: Optional[dict] = None):
+                 resource_groups: Optional[dict] = None, cluster=None):
         """authenticator/access_control: see server/security.py; None =
-        allow-all (the reference's insecure default)."""
+        allow-all (the reference's insecure default).  cluster: a
+        MultiHostEngine whose registry this server fills and whose workers
+        run its queries (None: the engine runs everything).  Its
+        ``internal_secret`` guards discovery; an authenticator that is not
+        allow-all with a cluster but no secret raises, since any process
+        that reached the port could then join as a worker."""
+        import copy
+
+        from .discovery import serve_discovery
         from .security import AccessDeniedError, Authenticator
 
         if access_control is not None:
@@ -246,7 +284,19 @@ class CoordinatorServer:
                             memory_pool=engine.memory_pool,
                             access_control=access_control,
                             device=engine.device)
-        self.manager = QueryManager(engine, resource_groups=resource_groups)
+            if cluster is not None:
+                cluster = copy.copy(cluster)
+                cluster.access_control = access_control
+        if cluster is not None and cluster.internal_secret is None \
+                and authenticator is not None \
+                and type(authenticator) is not Authenticator:
+            raise ValueError(
+                "an authenticated coordinator with workers needs a shared "
+                "secret for their announcements "
+                "(internal-communication.shared-secret)")
+        self.cluster = cluster
+        self.manager = QueryManager(engine, resource_groups=resource_groups,
+                                    cluster=cluster)
         manager = self.manager
         auth = authenticator or Authenticator()
 
@@ -268,6 +318,12 @@ class CoordinatorServer:
                 self.end_headers()
                 self.wfile.write(body)
 
+            def do_PUT(self):
+                if cluster is None or not serve_discovery(
+                        cluster.registry, self, "PUT",
+                        cluster.internal_secret):
+                    self._send(404, {"error": "not found"})
+
             def do_POST(self):
                 if self.path != "/v1/statement":
                     self._send(404, {"error": "not found"})
@@ -283,13 +339,21 @@ class CoordinatorServer:
                     user=user,
                     schema=self.headers.get("X-Presto1-Schema", "tiny"))
                 q = manager.submit(sql, session)
-                self._send(200, {
+                payload = {
                     "id": q.id,
                     "stats": {"state": q.state},
                     "nextUri": f"/v1/statement/executing/{q.id}/0",
-                })
+                }
+                if q.state in (QueryState.FAILED, QueryState.CANCELED):
+                    # a statement that failed before this reply says why
+                    payload["error"] = {"message": q.error or q.state}
+                self._send(200, payload)
 
             def do_GET(self):
+                if cluster is not None and serve_discovery(
+                        cluster.registry, self, "GET",
+                        cluster.internal_secret):
+                    return
                 parts = self.path.strip("/").split("/")
                 if parts == ["v1", "resourceGroupState"]:
                     self._send(200, manager.resource_groups.info())
@@ -317,7 +381,8 @@ class CoordinatorServer:
                     page = q.rows[start:start + PAGE_ROWS]
                     payload = {
                         "id": q.id,
-                        "stats": {"state": q.state, "wall_s": q.wall_s},
+                        "stats": {"state": q.state, "wall_s": q.wall_s,
+                                  **(q.cluster_stats or {})},
                         "columns": q.columns,
                         "data": page,
                     }
@@ -437,6 +502,8 @@ class CoordinatorServer:
         self._thread: Optional[threading.Thread] = None
 
     def start(self) -> "CoordinatorServer":
+        if self.cluster is not None:
+            self.cluster.registry.start()  # the heartbeat prober
         self._thread = threading.Thread(target=self.httpd.serve_forever,
                                         daemon=True)
         self._thread.start()
@@ -447,4 +514,6 @@ class CoordinatorServer:
         self.httpd.server_close()
         if self._thread is not None:
             self._thread.join(timeout=10)
+        if self.cluster is not None:
+            self.cluster.registry.stop()
         self.manager.pool.shutdown(wait=False)

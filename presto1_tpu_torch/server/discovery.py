@@ -8,6 +8,8 @@ and tracks an exponentially-decayed success rate; nodes under threshold are
 excluded by the scheduler.  Same design here over plain HTTP:
 
 * workers PUT /v1/announcement/{nodeId} on a loop → NodeRegistry
+  (``serve_discovery``: the coordinator's endpoint, which also lists the
+  nodes at GET /v1/node; with a shared secret both ask for its bearer)
 * a prober thread GETs each node's /v1/status; success-rate decays with
   factor DECAY per probe; below FAIL_RATIO ⇒ node marked failed
 * the scheduler asks for ``active_nodes()`` (announced, not failed,
@@ -123,6 +125,44 @@ class NodeRegistry:
                     node.last_probe = time.time()
                     node.shutting_down = shutting_down
             self._stop.wait(self.probe_interval_s)
+
+
+def serve_discovery(registry: NodeRegistry, handler, method: str,
+                    secret: Optional[str] = None) -> bool:
+    """Answer ``handler``'s request (a ``BaseHTTPRequestHandler``) where it
+    is discovery's: ``PUT /v1/announcement/{nodeId}`` records a worker's
+    announcement (202), ``GET /v1/node`` lists every node's info (200).
+    With a ``secret`` (the cluster's shared secret) either is refused (401)
+    unless it carries the secret's bearer (``security.internal_ok``).
+    False, having answered nothing, for any other request."""
+    from .security import internal_ok
+
+    parts = handler.path.strip("/").split("/")
+    announcement = method == "PUT" and parts[:2] == ["v1", "announcement"] \
+        and len(parts) == 3
+    listing = method == "GET" and parts == ["v1", "node"]
+    if announcement:  # read whether refused or not: the connection stays
+        length = int(handler.headers.get("Content-Length", "0"))
+        raw = handler.rfile.read(length)
+    if (announcement or listing) \
+            and not internal_ok(handler.headers, secret):
+        code, payload = 401, b'{"error": "internal authentication failed"}'
+    elif announcement:
+        body = json.loads(raw.decode())
+        registry.announce(parts[2], body["uri"], body.get("catalog", ""),
+                          topology=body.get("topology"))
+        code, payload = 202, b'{"ok": true}'
+    elif listing:
+        code, payload = 200, json.dumps(
+            [n.info() for n in registry.all_nodes()]).encode()
+    else:
+        return False
+    handler.send_response(code)
+    handler.send_header("Content-Type", "application/json")
+    handler.send_header("Content-Length", str(len(payload)))
+    handler.end_headers()
+    handler.wfile.write(payload)
+    return True
 
 
 class Backoff:

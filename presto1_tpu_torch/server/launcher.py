@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import threading
 import time
 
 
@@ -26,7 +27,15 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda",
                     help="torch device the server computes on (default: "
                          "cuda)")
+    ap.add_argument("--parent-pid", type=int, default=None,
+                    help="exit when this process is gone (a launcher that "
+                         "dies leaves no server behind)")
     args = ap.parse_args(argv)
+    if args.parent_pid is not None:
+        from .worker import _exit_with
+
+        threading.Thread(target=_exit_with, args=(args.parent_pid,),
+                         daemon=True).start()
 
     from .config import ServerConfig
 

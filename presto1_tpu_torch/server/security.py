@@ -15,12 +15,20 @@ Reference parity (SURVEY §2.1 Security):
 
 Credentials ride the statement protocol as HTTP basic auth or the
 X-Presto1-User header (matching the reference's X-Trino-User).
+
+* internal communication — the nodes of a cluster (announcements, tasks,
+  pages) prove themselves to each other with a bearer derived from a
+  shared secret (``internal-communication.shared-secret``, Trino's
+  ``InternalAuthenticationManager``): ``internal_headers`` adds it to a
+  request, ``internal_ok`` checks one.  A node without a secret sends and
+  checks nothing.
 """
 
 from __future__ import annotations
 
 import base64
 import hashlib
+import hmac
 import json
 import re
 import secrets
@@ -44,6 +52,29 @@ def _check(password: str, stored: str) -> bool:
         return hashlib.sha256(
             (salt + password).encode()).hexdigest() == digest
     return secrets.compare_digest(password, stored)  # plain entry
+
+
+INTERNAL_HEADER = "X-Presto1-Internal-Bearer"
+
+
+def internal_headers(secret: Optional[str]) -> Dict[str, str]:
+    """The header that proves a request comes from a node holding
+    ``secret``: an HMAC of it, so the secret itself never crosses the wire
+    (none without a secret)."""
+    if secret is None:
+        return {}
+    token = hmac.new(secret.encode(), b"presto1 internal communication",
+                     hashlib.sha256).hexdigest()
+    return {INTERNAL_HEADER: token}
+
+
+def internal_ok(headers, secret: Optional[str]) -> bool:
+    """Whether a request's ``headers`` carry ``secret``'s bearer (always
+    where there is no secret)."""
+    if secret is None:
+        return True
+    want = internal_headers(secret)[INTERNAL_HEADER]
+    return hmac.compare_digest(headers.get(INTERNAL_HEADER) or "", want)
 
 
 class Authenticator:

@@ -21,6 +21,10 @@ The re-design of the reference's worker surface over HTTP:
   ``metadata/DiscoveryNodeManager``).
 * shutdown      — ``PUT /v1/info/state`` with ``"SHUTTING_DOWN"`` drains
   active tasks then exits (``server/GracefulShutdownHandler.java:48-84``).
+* internal authentication — with the cluster's shared secret every request
+  but the heartbeat must carry its bearer (``security.internal_ok``, 401
+  otherwise), and the worker sends it with its announcements and its page
+  pulls from other workers.
 
 Inside one worker a fragment runs on the worker's torch device through the
 port's ``Executor`` or ``CompiledQuery`` (and so through its hand-written
@@ -40,11 +44,21 @@ compute on ``FairTaskExecutor`` threads, and a task's scan columns upload on
 another thread while its remote inputs are fetched; the catalog's column
 cache is safe for that (``exec/catalog.py``), and all device work goes to
 the process's current stream.
+
+A task created with ``"trace": true`` keeps a ``QueryTrace`` of its own
+(``trace.py``) and ships its spans in its info: ``task`` around all of it,
+``task_fetch`` (its remote inputs: pages, bytes) with ``pages_decode`` (their
+merge onto the device: bytes, rows), the executor's ``run`` / ``fragment`` /
+``op:*`` / ``wait`` spans of its compute, ``partition_output`` (rows,
+buffers) and ``pages_encode`` (pages, raw bytes, compressed bytes).  The
+coordinator grafts them into the statement's trace.  Untraced, nothing is
+recorded.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextvars
 import json
 import os
 import threading
@@ -58,6 +72,7 @@ from urllib import request as urlrequest
 import numpy as np
 import torch
 
+from .. import trace as tracing
 from ..batch import hash_strings_host as _hash_strings_host
 # a column part as host numpy: a device tensor is read back here, since
 # pages are serialized straight after
@@ -108,6 +123,8 @@ class WorkerTask:
         # the inputs' pages (decode + merge + placing them on the device)
         self.serialize_ms = 0.0
         self.decode_ms = 0.0
+        # the task's own spans, where the coordinator asked for a trace
+        self.spans: Optional[list] = None
 
     def info(self) -> dict:
         return {"taskId": self.id, "state": self.state, "error": self.error,
@@ -119,7 +136,7 @@ class WorkerTask:
                 "fetchMs": self.fetch_ms, "wallMs": self.wall_ms,
                 "hotKeys": self.hot_keys, "route": self.route,
                 "serializeMs": self.serialize_ms,
-                "decodeMs": self.decode_ms}
+                "decodeMs": self.decode_ms, "spans": self.spans}
 
 
 def _paginate(out, lo0: int, n: int) -> list:
@@ -128,22 +145,31 @@ def _paginate(out, lo0: int, n: int) -> list:
     from dataclasses import replace as _replace
 
     from ..batch import RecordBatch
-    from ..exec.pages import serialize_batch
+    from ..exec.pages import page_raw_bytes, serialize_batch
 
     pages = []
-    for lo in range(lo0, max(n, lo0 + 1), PAGE_MAX_ROWS):
-        hi = min(lo + PAGE_MAX_ROWS, n)
-        cols = {}
-        for name, c in out.columns.items():
-            cols[name] = _replace(
-                c, data=c.data[lo:hi],
-                validity=c.validity[lo:hi] if c.validity is not None else None,
-                lengths=c.lengths[lo:hi] if c.lengths is not None else None,
-                map_values=(c.map_values[lo:hi]
-                            if c.map_values is not None else None))
-        pages.append(serialize_batch(RecordBatch(cols, max(hi - lo, 0))))
-        if hi >= n:
-            break
+    detail = None if tracing.TRACE.get() is None else {}
+    with tracing.span("pages_encode", detail):
+        for lo in range(lo0, max(n, lo0 + 1), PAGE_MAX_ROWS):
+            hi = min(lo + PAGE_MAX_ROWS, n)
+            cols = {}
+            for name, c in out.columns.items():
+                cols[name] = _replace(
+                    c, data=c.data[lo:hi],
+                    validity=(c.validity[lo:hi] if c.validity is not None
+                              else None),
+                    lengths=(c.lengths[lo:hi] if c.lengths is not None
+                             else None),
+                    map_values=(c.map_values[lo:hi]
+                                if c.map_values is not None else None))
+            pages.append(serialize_batch(RecordBatch(cols,
+                                                     max(hi - lo, 0))))
+            if hi >= n:
+                break
+    if detail is not None:
+        detail.update(pages=len(pages),
+                      raw_bytes=sum(map(page_raw_bytes, pages)),
+                      bytes=sum(map(len, pages)))
     return pages
 
 
@@ -252,11 +278,12 @@ def _partition_output(out, n: int, keys, count: int,
     return buffers
 
 
-def _fetch_location(loc) -> tuple:
+def _fetch_location(loc, auth: Dict[str, str]) -> tuple:
     """Token-acked long-poll pull of ONE upstream buffer (the per-client
     loop of ``operator/HttpPageBufferClient.java:321``): pages deserialize
     (to host tensors) as they arrive, so the wire wait and the decode
-    overlap."""
+    overlap.  ``auth``: the headers every pull carries (the cluster's
+    internal bearer)."""
     from ..exec.dist_engine import exchange_deadline_s
     from ..exec.pages import deserialize_batch
 
@@ -268,7 +295,7 @@ def _fetch_location(loc) -> tuple:
     while True:
         url = (f"{loc['uri']}/v1/task/{loc['task']}/results/"
                f"{loc['buffer']}/{token}")
-        req = urlrequest.Request(url, method="GET")
+        req = urlrequest.Request(url, method="GET", headers=auth)
         with urlrequest.urlopen(req, timeout=60) as resp:
             data = resp.read()
             headers = dict(resp.headers)
@@ -290,15 +317,17 @@ def _fetch_location(loc) -> tuple:
 _FETCH_PARALLELISM = int(os.environ.get("P1_EXCHANGE_CONCURRENCY", "16"))
 
 
-def _fetch_sources_concurrent(sources: dict, device) -> tuple:
+def _fetch_sources_concurrent(sources: dict, device,
+                              headers: Dict[str, str]) -> tuple:
     """Pull EVERY upstream buffer of every stub concurrently (the
     reference's ExchangeClient keeps one HttpPageBufferClient per upstream
     task, all in flight at once — ``operator/ExchangeClient.java:149``),
     then merge each stub's pages on the host and place it on ``device``.
     Upstream tasks finish at different times; concurrent pulls mean this
     task's wait is max(upstream walls), not their sum.  Returns the stubs,
-    the bytes pulled and the seconds spent decoding, merging and placing
-    them."""
+    the pages and bytes pulled and the seconds spent decoding, merging and
+    placing them (the merge is the span ``pages_decode``).  ``headers`` go
+    with every pull (the cluster's internal bearer)."""
     from concurrent.futures import ThreadPoolExecutor
 
     from ..exec.pages import concat_batches
@@ -314,27 +343,33 @@ def _fetch_sources_concurrent(sources: dict, device) -> tuple:
     with ThreadPoolExecutor(
             max_workers=min(_FETCH_PARALLELISM, max(len(jobs), 1)),
             thread_name_prefix="exchange-fetch") as pool:
-        futures = {pool.submit(_fetch_location, loc): (path, i)
+        futures = {pool.submit(_fetch_location, loc, headers): (path, i)
                    for path, i, loc in jobs}
         for fut, key in futures.items():
             results[key] = fut.result()
     stubs = {}
-    total_bytes = 0
+    total_bytes = pages = 0
     decode_s = 0.0
     t0 = time.perf_counter()
-    for path_str, locations in sources.items():
-        path = tuple(int(x) for x in path_str.split(",") if x != "")
-        batches = []
-        for i in range(len(locations)):
-            b, nb, ds = results[(path, i)]
-            batches.extend(b)
-            total_bytes += nb
-            decode_s += ds
-        merged = concat_batches(batches, device=device)
-        if merged is None:
-            raise RuntimeError("remote source produced no pages")
-        stubs[path] = merged
-    return stubs, total_bytes, decode_s + time.perf_counter() - t0
+    detail = None if tracing.TRACE.get() is None else {}
+    with tracing.span("pages_decode", detail):
+        for path_str, locations in sources.items():
+            path = tuple(int(x) for x in path_str.split(",") if x != "")
+            batches = []
+            for i in range(len(locations)):
+                b, nb, ds = results[(path, i)]
+                batches.extend(b)
+                total_bytes += nb
+                decode_s += ds
+            pages += len(batches)
+            merged = concat_batches(batches, device=device)
+            if merged is None:
+                raise RuntimeError("remote source produced no pages")
+            stubs[path] = merged
+    if detail is not None:
+        detail.update(bytes=total_bytes,
+                      rows=sum(int(b.num_rows) for b in stubs.values()))
+    return stubs, pages, total_bytes, decode_s + time.perf_counter() - t0
 
 
 def _scans_outside_stubs(plan, stub_paths) -> list:
@@ -366,14 +401,20 @@ def _prefetch_scans(plan, catalog, stub_paths) -> None:
             t.column(col)
 
 
-def _make_catalog(spec: str, device):
-    """'tpch:tiny' / 'tpch:sf1' -> catalog on ``device``.  Extension point
-    for connectors."""
-    from ..exec.catalog import TpchCatalog
+def _make_catalog(spec, device):
+    """The catalog on ``device`` from a node's catalog properties (a dict,
+    read by ``server/config.py::build_catalog`` as the coordinator reads
+    its own) or from a spec 'tpch:tiny' / 'tpch:sf1'."""
+    from .config import build_catalog
 
+    if isinstance(spec, dict):
+        return build_catalog(spec, spec.get("connector.name", "catalog"),
+                             device=device)
     kind, _, arg = spec.partition(":")
     if kind == "tpch":
-        return TpchCatalog(arg or "tiny", device=device)
+        return build_catalog({"connector.name": "tpch",
+                              "tpch.schema": arg or "tiny"}, spec,
+                             device=device)
     raise ValueError(f"unknown catalog spec {spec}")
 
 
@@ -392,11 +433,19 @@ def _metrics_snapshot() -> list:
 
 
 class WorkerRuntime:
-    """Owns tasks and executes fragments (SqlTaskManager analog)."""
+    """Owns tasks and executes fragments (SqlTaskManager analog).
+    ``catalog``: the node's catalog properties, or a spec 'tpch:<schema>'
+    (``_make_catalog``)."""
 
-    def __init__(self, catalog_spec: str, device="cuda"):
+    def __init__(self, catalog, device="cuda",
+                 internal_secret: Optional[str] = None):
+        from .security import internal_headers
+
         self.node_id = uuid.uuid4().hex[:12]
-        self.catalog_spec = catalog_spec
+        # the cluster's shared secret (None: no internal authentication)
+        self.internal_secret = internal_secret
+        self.internal_headers = internal_headers(internal_secret)
+        self.catalog_spec = catalog
         self.device = torch.device(device)
         self._base_catalog = None
         self._catalog_lock = threading.Lock()
@@ -457,95 +506,13 @@ class WorkerRuntime:
     def _run(self, task: WorkerTask, body: dict) -> None:
         from ..exec.metrics import REGISTRY
 
+        trace = tracing.QueryTrace(task.id) if body.get("trace") else None
         try:
-            from ..sql.serde import plan_from_json
-
-            plan = plan_from_json(body["fragment"])
-            shard = body.get("shard")
-            catalog = self.base_catalog() if shard is None \
-                else self.shard_catalog(shard["index"], shard["count"])
-            # remote sources: this task consumes other tasks' partitioned
-            # buffers (the ExchangeOperator/ExchangeClient side,
-            # operator/ExchangeClient.java:56) — every upstream buffer
-            # pulls CONCURRENTLY, and the fragment's scan columns upload
-            # under the exchange wait
-            t_start = time.time()
-            sources = body.get("sources") or {}
-            stub_paths = {tuple(int(x) for x in p.split(",") if x != "")
-                          for p in sources}
-            stubs = {}
-            if sources:
-                pf_error: list = []
-
-                def prefetch():
-                    try:
-                        _prefetch_scans(plan, catalog, stub_paths)
-                    except Exception as e:  # noqa: BLE001 — fails the task
-                        pf_error.append(e)
-
-                pf = threading.Thread(target=prefetch, daemon=True)
-                pf.start()
-                stubs, nbytes, decode_s = _fetch_sources_concurrent(
-                    sources, self.device)
-                task.bytes_in += nbytes
-                task.decode_ms = round(decode_s * 1000, 3)
-                pf.join()
-                if pf_error:
-                    raise pf_error[0]
-            task.fetch_ms = round((time.time() - t_start) * 1000, 3)
-
-            t0 = time.time()
-            # fragment compute runs under the fair MLFQ scheduler keyed
-            # by the query's accumulated time (coordinator-assigned query
-            # id; standalone tasks fall back to their task id)
-            out, qstats = self.task_executor.run(
-                body.get("query") or task.id,
-                lambda: self._compute(task, body, plan, catalog, shard,
-                                      stubs))
-            n = out.num_rows if isinstance(out.num_rows, int) \
-                else int(out.num_rows)
-            if qstats is None:
-                task.operator_stats = [
-                    {"path": [], "name": "CompiledFragment",
-                     "wallMs": round((time.time() - t0) * 1000, 3),
-                     "rows": n, "invocations": 1}]
-            else:
-                qstats.wall_s = time.time() - t0
-                task.operator_stats = [
-                    {"path": list(path), "name": op.name,
-                     "wallMs": round(op.wall_s * 1000, 3),
-                     "rows": int(op.output_rows),
-                     "invocations": op.invocations}
-                    for path, op in qstats.items()
-                ]
-
-            collect = body.get("collect_domains")
-            if collect:
-                doms = {}
-                for key in collect:
-                    c = out[key]
-                    if c.dictionary is not None:
-                        doms[key] = None  # strings: no range domain
-                        continue
-                    data = _host(c.data[:n])
-                    if c.validity is not None:
-                        data = data[_host(c.validity[:n])]
-                    doms[key] = ([data.min().item(), data.max().item()]
-                                 if data.size else [])
-                task.domains = doms
-
-            t_pages = time.perf_counter()
-            part = body.get("output_partitioning")
-            if part is not None:
-                task.buffers = _partition_output(
-                    out, n, part["keys"], int(part["count"]),
-                    collect_hot=body.get("collect_hot"),
-                    hot_hashes=body.get("hot_hashes"), task=task)
-            else:
-                task.buffers = [_paginate(out, 0, n)]
-            task.serialize_ms = round(
-                (time.perf_counter() - t_pages) * 1000, 3)
-            task.wall_ms = round((time.time() - t_start) * 1000, 3)
+            with tracing.enter(trace, "task", {"node": self.node_id,
+                                               "task": task.id}):
+                n = self._execute(task, body)
+            if trace is not None:
+                task.spans = trace.spans
             task.state = TaskState.FINISHED
             REGISTRY.counter("worker.tasks_finished").update()
             REGISTRY.counter("worker.output_rows").update(n)
@@ -558,6 +525,107 @@ class WorkerRuntime:
             task.state = TaskState.FAILED
         finally:
             task.done.set()
+
+    def _execute(self, task: WorkerTask, body: dict) -> int:
+        """The task's work up to its output buffers; returns its rows."""
+        from ..sql.serde import plan_from_json
+
+        plan = plan_from_json(body["fragment"])
+        shard = body.get("shard")
+        catalog = self.base_catalog() if shard is None \
+            else self.shard_catalog(shard["index"], shard["count"])
+        # remote sources: this task consumes other tasks' partitioned
+        # buffers (the ExchangeOperator/ExchangeClient side,
+        # operator/ExchangeClient.java:56) — every upstream buffer
+        # pulls CONCURRENTLY, and the fragment's scan columns upload
+        # under the exchange wait
+        t_start = time.time()
+        sources = body.get("sources") or {}
+        stub_paths = {tuple(int(x) for x in p.split(",") if x != "")
+                      for p in sources}
+        stubs = {}
+        fetched = None if tracing.TRACE.get() is None else {}
+        if sources:
+            pf_error: list = []
+
+            def prefetch():
+                try:
+                    _prefetch_scans(plan, catalog, stub_paths)
+                except Exception as e:  # noqa: BLE001 — fails the task
+                    pf_error.append(e)
+
+            pf = threading.Thread(target=prefetch, daemon=True)
+            pf.start()
+            with tracing.span("task_fetch", fetched):
+                stubs, pages, nbytes, decode_s = \
+                    _fetch_sources_concurrent(sources, self.device,
+                                              self.internal_headers)
+            if fetched is not None:
+                fetched.update(pages=pages, bytes=nbytes)
+            task.bytes_in += nbytes
+            task.decode_ms = round(decode_s * 1000, 3)
+            pf.join()
+            if pf_error:
+                raise pf_error[0]
+        task.fetch_ms = round((time.time() - t_start) * 1000, 3)
+
+        t0 = time.time()
+        # fragment compute runs under the fair MLFQ scheduler keyed
+        # by the query's accumulated time (coordinator-assigned query
+        # id; standalone tasks fall back to their task id), on a
+        # runner thread that records into this task's trace while this
+        # thread waits
+        ctx = contextvars.copy_context()
+        out, qstats = self.task_executor.run(
+            body.get("query") or task.id,
+            lambda: ctx.run(self._compute, task, body, plan, catalog,
+                            shard, stubs))
+        n = tracing.host_read(out.num_rows)
+        if qstats is None:
+            task.operator_stats = [
+                {"path": [], "name": "CompiledFragment",
+                 "wallMs": round((time.time() - t0) * 1000, 3),
+                 "rows": n, "invocations": 1}]
+        else:
+            qstats.wall_s = time.time() - t0
+            task.operator_stats = [
+                {"path": list(path), "name": op.name,
+                 "wallMs": round(op.wall_s * 1000, 3),
+                 "rows": int(op.output_rows),
+                 "invocations": op.invocations}
+                for path, op in qstats.items()
+            ]
+
+        collect = body.get("collect_domains")
+        if collect:
+            doms = {}
+            for key in collect:
+                c = out[key]
+                if c.dictionary is not None:
+                    doms[key] = None  # strings: no range domain
+                    continue
+                data = _host(c.data[:n])
+                if c.validity is not None:
+                    data = data[_host(c.validity[:n])]
+                doms[key] = ([data.min().item(), data.max().item()]
+                             if data.size else [])
+            task.domains = doms
+
+        t_pages = time.perf_counter()
+        part = body.get("output_partitioning")
+        if part is not None:
+            with tracing.span("partition_output",
+                              {"rows": n, "buffers": int(part["count"])}):
+                task.buffers = _partition_output(
+                    out, n, part["keys"], int(part["count"]),
+                    collect_hot=body.get("collect_hot"),
+                    hot_hashes=body.get("hot_hashes"), task=task)
+        else:
+            task.buffers = [_paginate(out, 0, n)]
+        task.serialize_ms = round(
+            (time.perf_counter() - t_pages) * 1000, 3)
+        task.wall_ms = round((time.time() - t_start) * 1000, 3)
+        return n
 
     def _compute(self, task, body, plan, catalog, shard, stubs):
         """Run the fragment: ``(output batch, QueryStats or None)``.  The
@@ -692,10 +760,18 @@ class WorkerRuntime:
 
 
 class WorkerServer:
-    def __init__(self, catalog_spec: str, host: str = "127.0.0.1",
+    """``catalog_spec``: the node's catalog properties, or 'tpch:<schema>'
+    (``WorkerRuntime``).  ``internal_secret``: the cluster's shared
+    secret, asked of every request but the heartbeat."""
+
+    def __init__(self, catalog_spec, host: str = "127.0.0.1",
                  port: int = 0, coordinator: Optional[str] = None,
-                 announce_interval_s: float = 1.0, device="cuda"):
-        self.runtime = WorkerRuntime(catalog_spec, device=device)
+                 announce_interval_s: float = 1.0, device="cuda",
+                 internal_secret: Optional[str] = None):
+        from .security import internal_ok
+
+        self.runtime = WorkerRuntime(catalog_spec, device=device,
+                                     internal_secret=internal_secret)
         runtime = self.runtime
         server = self
 
@@ -713,7 +789,21 @@ class WorkerServer:
                 self.end_headers()
                 self.wfile.write(body)
 
+            def _refused(self) -> bool:
+                """Answers 401, having read the body, where the request
+                lacks the cluster's bearer; the heartbeat needs none."""
+                if self.path.strip("/") == "v1/status" or internal_ok(
+                        self.headers, runtime.internal_secret):
+                    return False
+                self.rfile.read(int(self.headers.get("Content-Length",
+                                                     "0")))
+                self._send_json(401, {
+                    "error": "internal authentication failed"})
+                return True
+
             def do_POST(self):
+                if self._refused():
+                    return
                 parts = self.path.strip("/").split("/")
                 if parts[:2] == ["v1", "task"] and len(parts) == 3:
                     length = int(self.headers.get("Content-Length", "0"))
@@ -728,6 +818,8 @@ class WorkerServer:
                 self._send_json(404, {"error": "not found"})
 
             def do_GET(self):
+                if self._refused():
+                    return
                 parts = self.path.strip("/").split("/")
                 if parts == ["v1", "status"]:
                     self._send_json(200, runtime.status())
@@ -790,6 +882,8 @@ class WorkerServer:
                 self._send_json(404, {"error": "not found"})
 
             def do_DELETE(self):
+                if self._refused():
+                    return
                 parts = self.path.strip("/").split("/")
                 if parts[:2] == ["v1", "task"] and len(parts) == 3:
                     ok = runtime.abort(parts[2])
@@ -798,6 +892,8 @@ class WorkerServer:
                 self._send_json(404, {"error": "not found"})
 
             def do_PUT(self):
+                if self._refused():
+                    return
                 parts = self.path.strip("/").split("/")
                 if parts == ["v1", "info", "state"]:
                     length = int(self.headers.get("Content-Length", "0"))
@@ -837,9 +933,11 @@ class WorkerServer:
         topology = {k: os.environ[f"P1_NODE_{k.upper()}"]
                     for k in ("rack", "host", "pod")
                     if os.environ.get(f"P1_NODE_{k.upper()}")}
+        spec = self.runtime.catalog_spec
         payload = json.dumps({
             "nodeId": self.runtime.node_id, "uri": self.uri(),
-            "catalog": self.runtime.catalog_spec,
+            "catalog": spec if isinstance(spec, str)
+            else spec.get("connector.name"),
             "topology": topology,
         }).encode()
         while not self._stop.is_set():
@@ -848,7 +946,8 @@ class WorkerServer:
                     f"{self.coordinator}/v1/announcement/"
                     f"{self.runtime.node_id}",
                     data=payload, method="PUT",
-                    headers={"Content-Type": "application/json"})
+                    headers={"Content-Type": "application/json",
+                             **self.runtime.internal_headers})
                 urlrequest.urlopen(req, timeout=5).read()
             except Exception:  # noqa: BLE001 — re-announce next tick
                 pass

@@ -14,7 +14,6 @@ gone).
 
 from __future__ import annotations
 
-import json
 import os
 import subprocess
 import sys
@@ -26,7 +25,7 @@ from typing import List, Optional
 import torch
 
 from ..exec.dist_engine import MultiHostEngine
-from ..server.discovery import NodeRegistry
+from ..server.discovery import NodeRegistry, serve_discovery
 
 # a worker process announces itself once torch is imported and its server
 # listens: seconds, even on a loaded host or a card's first context
@@ -34,8 +33,10 @@ START_TIMEOUT_S = 120.0
 
 
 class DiscoveryServer:
-    """Minimal coordinator-side discovery HTTP endpoint
-    (PUT /v1/announcement/{nodeId})."""
+    """The discovery endpoint alone (``server/discovery.py::
+    serve_discovery``, as a coordinator with
+    ``node-scheduler.include-coordinator=false`` serves it), for a
+    coordinator that runs in the test's process."""
 
     def __init__(self, registry: NodeRegistry, host: str = "127.0.0.1",
                  port: int = 0):
@@ -47,37 +48,17 @@ class DiscoveryServer:
             def log_message(self, fmt, *args):
                 pass
 
-            def do_PUT(self):
-                parts = self.path.strip("/").split("/")
-                if parts[:2] == ["v1", "announcement"] and len(parts) == 3:
-                    length = int(self.headers.get("Content-Length", "0"))
-                    body = json.loads(self.rfile.read(length).decode())
-                    reg.announce(parts[2], body["uri"], body.get("catalog", ""),
-                                 topology=body.get("topology"))
-                    payload = b'{"ok": true}'
-                    self.send_response(202)
-                    self.send_header("Content-Type", "application/json")
-                    self.send_header("Content-Length", str(len(payload)))
+            def _serve(self, method: str):
+                if not serve_discovery(reg, self, method):
+                    self.send_response(404)
+                    self.send_header("Content-Length", "0")
                     self.end_headers()
-                    self.wfile.write(payload)
-                    return
-                self.send_response(404)
-                self.send_header("Content-Length", "0")
-                self.end_headers()
+
+            def do_PUT(self):
+                self._serve("PUT")
 
             def do_GET(self):
-                if self.path == "/v1/node":
-                    payload = json.dumps(
-                        [n.info() for n in reg.all_nodes()]).encode()
-                    self.send_response(200)
-                    self.send_header("Content-Type", "application/json")
-                    self.send_header("Content-Length", str(len(payload)))
-                    self.end_headers()
-                    self.wfile.write(payload)
-                    return
-                self.send_response(404)
-                self.send_header("Content-Length", "0")
-                self.end_headers()
+                self._serve("GET")
 
         self.httpd = ThreadingHTTPServer((host, port), Handler)
         self.port = self.httpd.server_address[1]
@@ -143,12 +124,9 @@ class MultiHostRunner:
                     stdin=subprocess.DEVNULL)
                 self.workers.append(p)
             self._wait_for_nodes(n_workers, START_TIMEOUT_S)
-            kind, _, arg = catalog_spec.partition(":")
-            if kind != "tpch":
-                raise ValueError(f"unknown catalog spec {catalog_spec}")
-            from ..exec.catalog import TpchCatalog
+            from ..server.worker import _make_catalog
 
-            catalog = TpchCatalog(arg or "tiny", device=device)
+            catalog = _make_catalog(catalog_spec, device)
             self.engine = MultiHostEngine(
                 catalog, self.registry, shards_per_node=shards_per_node,
                 broadcast_threshold=broadcast_threshold, device=device)

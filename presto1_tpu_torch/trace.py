@@ -36,9 +36,13 @@ class QueryTrace:
     Spans of one trace are opened and closed by one thread, so they nest:
     a child lies inside its parent, and siblings do not overlap.  A
     statement has two roots, ``statement`` and, once its batch is read,
-    ``to_host``."""
+    ``to_host``.  ``graft`` adds the spans another thread or process
+    recorded in a trace of its own: each of their roots hangs under the
+    span that started that work, but runs beside it, or after it, and
+    beside its siblings (``grafted``: their indices)."""
 
-    __slots__ = ("query_id", "spans", "_open", "node_ids", "subtrees")
+    __slots__ = ("query_id", "spans", "_open", "node_ids", "subtrees",
+                 "grafted")
 
     def __init__(self, query_id: str):
         self.query_id = query_id
@@ -50,6 +54,7 @@ class QueryTrace:
         # subtrees share it
         self.node_ids: Dict[int, tuple] = {}
         self.subtrees: Dict[str, int] = {}
+        self.grafted: set = set()
 
     def begin(self, name: str, detail=None) -> int:
         i = len(self.spans)
@@ -74,22 +79,40 @@ class QueryTrace:
         finally:
             self.end(i)
 
-    def self_ns(self) -> Dict[str, int]:
-        """ns by span name, each span's duration less its children's (they
-        nest inside it without overlapping)."""
+    def graft(self, parent: int, spans) -> None:
+        """Append ``spans`` (the ``spans`` of another trace, closed) under
+        span ``parent``.  Their clock must be this trace's: the host's
+        ``perf_counter_ns`` is ``CLOCK_MONOTONIC``, one clock for every
+        process of a host (from another host only durations would hold)."""
+        base = len(self.spans)
+        for name, start, end, up, detail in spans:
+            if up is None:
+                self.grafted.add(len(self.spans))
+            self.spans.append([name, start, end,
+                               parent if up is None else up + base, detail])
+
+    def span_self_ns(self) -> List[int]:
+        """Each span's self ns, in the order of ``spans``: its duration
+        less its children's (they nest inside it without overlapping); a
+        grafted root's duration is not its parent's."""
         own = [s[2] - s[1] for s in self.spans]
-        for s in self.spans:
-            if s[3] is not None:
+        for i, s in enumerate(self.spans):
+            if s[3] is not None and i not in self.grafted:
                 own[s[3]] -= s[2] - s[1]
+        return own
+
+    def self_ns(self) -> Dict[str, int]:
+        """Self ns by span name (``span_self_ns`` summed)."""
         out: Dict[str, int] = {}
-        for s, ns in zip(self.spans, own):
+        for s, ns in zip(self.spans, self.span_self_ns()):
             out[s[0]] = out.get(s[0], 0) + ns
         return out
 
     def to_dict(self) -> dict:
         keys = ("name", "start_ns", "end_ns", "parent", "detail")
         return {"query_id": self.query_id,
-                "spans": [dict(zip(keys, s)) for s in self.spans]}
+                "spans": [dict(zip(keys, s)) for s in self.spans],
+                "grafted": sorted(self.grafted)}
 
 
 def operator_counts(spans) -> Dict[str, int]:

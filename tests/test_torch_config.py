@@ -178,14 +178,22 @@ def test_worker_role_from_etc(tmp_path):
         catalogs={"tpch": "connector.name=tpch\ntpch.schema=tiny\n"})
     cfg = ServerConfig.from_etc_dir(etc)
     assert not cfg.coordinator
-    assert cfg.catalog_spec() == "tpch:tiny" == \
-        j_config.ServerConfig.from_etc_dir(etc).catalog_spec()
+    # the worker builds its catalog from the properties, as the JAX
+    # package's builds it from the spec they make
+    assert cfg.pick_catalog_props() == ("tpch", {"connector.name": "tpch",
+                                                 "tpch.schema": "tiny"})
+    assert j_config.ServerConfig.from_etc_dir(etc).catalog_spec() == \
+        "tpch:tiny"
     srv = _cpu(cfg).build().start()
     try:
         with urllib.request.urlopen(srv.uri() + "/v1/status",
                                     timeout=10) as r:
             status = json.load(r)
         assert status["nodeId"] and status["device"] == "cpu"
+        base = srv.runtime.base_catalog()
+        assert sorted(base.tables) == sorted(j_config.build_catalog(
+            {"connector.name": "tpch", "tpch.schema": "tiny"}).tables)
+        assert base.sf == 0.01 and str(base.device) == "cpu"
     finally:
         srv.stop()
 
